@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
+     sm_90a (at first use, into ``build/``);
+  3. dndm_update kernel vs its plain version: tokens bitwise equal;
+  4. flash_attention kernel vs its plain version: f32 within atol/rtol
+     1e-4 (the sums run in another order), bf16 within 2e-2 (one bf16
+     rounding of the output, as tests/test_kernels.py allows);
+  5. the main path: dndm-text8 at full width (12 layers, d_model 768,
+     12 heads, d_ff 3072, vocab 28), random weights from seed 0,
+     attn_impl="pallas", f32; a GenerationEngine (method "dndm",
+     T = 1000 steps, absorbing noise, x0_mode "sample") behind a
+     BatchScheduler (max_batch 8, bucket_len 256) drains 16 requests.
+     Checks: 256 tokens per request, no [MASK] left, NFE per batch =
+     unique tau values, dndm_update launches = total NFE and
+     flash_attention launches = 12 x total NFE, where the total NFE
+     counts every sampler run the engine executed, the untimed warm-up
+     replay of the first batch (its engine key is cold) included; then
+     the full-width denoiser's
+     logits through the kernel vs through plain einsum attention;
+  6. kernel times at the main path's shapes beside their bounds, the
+     plain versions and, for attention, scaled_dot_product_attention
+     (a yardstick only; the port never calls it).
+
+The last lines are JSON: the main path, the kernels, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import repro_torch.configs as configs_lib  # noqa: E402
+from repro_torch.core.decode import gumbel_noise  # noqa: E402
+from repro_torch.core.samplers import loop  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.dndm_update import ops as k1_ops  # noqa: E402
+from repro_torch.kernels.dndm_update import ref as k1_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as k2_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as k2_ref  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serving import (BatchScheduler, EngineConfig,  # noqa: E402
+                                 GenerationEngine)
+
+# H100 SXM data sheet (dense): HBM rate and f32 rate outside the tensor
+# cores, at the full 700 W power limit.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+K1_SHAPES = [(1, 16, 32), (3, 40, 100), (2, 64, 257), (1, 7, 1000),
+             (8, 256, 28)]
+# (B, S, H, KV, hd, causal, window)
+K2_CASES = ([(B, S, H, H, hd, c, 0)
+             for (B, S, H, hd) in [(1, 32, 2, 16), (2, 64, 4, 32),
+                                   (1, 128, 2, 64), (2, 48, 3, 32),
+                                   (8, 256, 12, 64)]
+             for c in (True, False)]
+            + [(8, 256, 12, 4, 64, False, 0),     # GQA
+               (2, 100, 4, 2, 64, True, 16),      # causal window
+               (2, 100, 4, 2, 128, False, 16),    # bidirectional window
+               (2, 37, 2, 2, 16, False, 0)])      # ragged S
+K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+MAIN_REQUESTS, MAIN_LEN, MAIN_BATCH, MAIN_T = 16, 256, 8, 1000
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel instance from nvcc's -Xptxas -v
+    output: registers, shared memory and spills."""
+    out, name, spill = [], "", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"(dndm_update_kernel|flash_attention_kernel)",
+                             mangled)
+            dtype = "bf16" if "bfloat16" in mangled else "f32"
+            hd = re.search(r"Li(\d+)EE", mangled)
+            name = (f"{base.group(1) if base else mangled}<{dtype}"
+                    f"{', hd=' + hd.group(1) if hd else ''}>")
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "ptxas info    : Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = ""
+    return out
+
+
+def time_ms(fn, iters: int, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the mean time of ``iters`` launches,
+    by CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
+def check_dndm_update(g) -> tuple[int, int]:
+    """Kernel vs plain on the card, bitwise; returns (cases run, max
+    |token difference|), the latter 0 when every case passed."""
+    cases, max_err = 0, 0
+    for B, N, K in K1_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            logits = torch.randn(B, N, K, generator=g, device="cuda").to(dt)
+            x = torch.randint(0, K, (B, N), generator=g, device="cuda",
+                              dtype=torch.int32)
+            tau = torch.randint(1, 20, (B, N), generator=g, device="cuda",
+                                dtype=torch.int32)
+            mask = torch.zeros(K, device="cuda")
+            mask[K - 1] = -1e9
+            noise = gumbel_noise(g, (B, N, K), "cuda")
+            for version in (1, 2):
+                for gum in (None, noise):
+                    for temp in (1.0, 0.7):
+                        for t in (1, 5, 19):
+                            kw = dict(mask=mask, gumbel=gum, version=version,
+                                      temperature=temp)
+                            a = k1_ops.dndm_update(logits, x, tau, t, **kw)
+                            b = k1_ref.dndm_update(logits, x, tau, t, **kw)
+                            max_err = max(max_err,
+                                          int((a - b).abs().max()))
+                            if not torch.equal(a, b):
+                                raise AssertionError(
+                                    f"dndm_update != plain at {(B, N, K)} "
+                                    f"{dt} v{version} gumbel="
+                                    f"{gum is not None} temp={temp} t={t}: "
+                                    f"{int((a != b).sum())} tokens differ")
+                            cases += 1
+    return cases, max_err
+
+
+def check_flash_attention(g) -> tuple[int, float]:
+    """Kernel vs plain on the card; returns (cases, max f32 error at the
+    main path's shape)."""
+    main_err = 0.0
+    for B, S, H, KV, hd, causal, window in K2_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
+            k = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
+            v = torch.randn(B, S, KV, hd, generator=g, device="cuda").to(dt)
+            a = k2_ops.flash_attention(q, k, v, causal=causal, window=window)
+            b = k2_ref.attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = float((a.float() - b.float()).abs().max())
+            tol = K2_TOL[dt]
+            if not torch.allclose(a.float(), b.float(), atol=tol, rtol=tol):
+                raise AssertionError(
+                    f"flash_attention != plain at {(B, S, H, KV, hd)} {dt} "
+                    f"causal={causal} window={window}: max err {err}")
+            if ((B, S, H, KV, hd, causal, window) == (8, 256, 12, 12, 64,
+                                                      False, 0)
+                    and dt == torch.float32):
+                main_err = err
+    return 2 * len(K2_CASES), main_err
+
+
+def main_path():
+    """Serve 16 requests through the port's entry points; returns the
+    model, the scheduler, the finished requests, the drain time and the
+    launch counts."""
+    cfg = configs_lib.get("dndm-text8").replace(attn_impl="pallas")
+    model = Model(cfg, device="cuda", seed=0)
+    engine = GenerationEngine(model, EngineConfig(
+        method="dndm", steps=MAIN_T, noise_kind="absorbing",
+        x0_mode="sample"), device="cuda")
+    sched = BatchScheduler(engine, max_batch=MAIN_BATCH, bucket_len=MAIN_LEN,
+                           seed=0, device="cuda")
+    for _ in range(MAIN_REQUESTS):
+        sched.submit(MAIN_LEN)
+
+    k1_ops.dndm_update.launches = 0
+    k2_ops.flash_attention.launches = 0
+    engine.network_calls = 0
+    t0 = time.perf_counter()
+    done = sched.run()
+    drain_s = time.perf_counter() - t0
+    counts = {"dndm_update": k1_ops.dndm_update.launches,
+              "flash_attention": k2_ops.flash_attention.launches,
+              "network_calls": engine.network_calls}
+    return model, sched, done, drain_s, counts
+
+
+def check_main_path(model, sched, done, counts) -> dict:
+    engine = sched.engine
+    cfg = model.cfg
+    mask_id = engine.noise.mask_id
+    if len(done) != MAIN_REQUESTS:
+        raise AssertionError(f"{len(done)} of {MAIN_REQUESTS} requests done")
+    batches: dict[int, list] = {}
+    for r in done.values():
+        if r.result.shape != (MAIN_LEN,):
+            raise AssertionError(f"request {r.rid}: {r.result.shape} tokens")
+        if (r.result == mask_id).any():
+            raise AssertionError(f"request {r.rid}: [MASK] left")
+        if not ((r.result >= 0) & (r.result < cfg.vocab_size)).all():
+            raise AssertionError(f"request {r.rid}: token out of vocab")
+        batches.setdefault(r.seed, []).append(r)
+    dist = engine.runtime().dist
+    timed_nfe, warmup_nfe, timed_wall = 0, 0, 0.0
+    cold: set[int] = set()
+    for seed, reqs in batches.items():
+        B = sched.batch_bucket(len(reqs))
+        # replay the batch's tau draw: the first draw of its generator
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tau, _, _ = loop.setup(gen, engine.noise, B, MAIN_LEN, dist=dist,
+                               shared=True, device=engine.device)
+        n_unique = len(loop.unique_times(tau.cpu().numpy()))
+        nfe = reqs[0].nfe
+        if nfe != n_unique:
+            raise AssertionError(f"batch {seed}: NFE {nfe} != {n_unique} "
+                                 "unique tau values")
+        timed_nfe += nfe
+        timed_wall += reqs[0].batch_wall
+        # the first batch of each bucket size meets a cold engine key: the
+        # engine ran it once more, untimed, before the timed run
+        if B not in cold:
+            cold.add(B)
+            warmup_nfe += nfe
+    total_nfe = timed_nfe + warmup_nfe
+    if counts["network_calls"] != total_nfe:
+        raise AssertionError(f"engine made {counts['network_calls']} calls, "
+                             f"expected {total_nfe}")
+    if counts["dndm_update"] != total_nfe:
+        raise AssertionError(f"dndm_update launched {counts['dndm_update']} "
+                             f"times for {total_nfe} network calls")
+    if counts["flash_attention"] != cfg.n_layers * total_nfe:
+        raise AssertionError(
+            f"flash_attention launched {counts['flash_attention']} times, "
+            f"expected {cfg.n_layers} x {total_nfe}")
+    return {"batches": len(batches), "timed_nfe": timed_nfe,
+            "warmup_nfe": warmup_nfe, "total_nfe": total_nfe,
+            "timed_wall_s": timed_wall}
+
+
+def check_denoiser(model) -> float:
+    """Full-width logits through the flash kernel vs plain einsum
+    attention, same weights, at the repo's logits bar (atol 3e-4, rtol
+    3e-3, tests/test_models.py)."""
+    plain = Model(model.cfg.replace(attn_impl="einsum"), device="cuda",
+                  seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, model.cfg.vocab_size, (2, MAIN_LEN), generator=g,
+                        device="cuda", dtype=torch.int32)
+    t = torch.rand(2, generator=g, device="cuda")
+    with torch.inference_mode():
+        a = model(tok, t, causal=False)
+        b = plain(tok, t, causal=False)
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    if not torch.isfinite(a).all() or not torch.allclose(a, b, atol=3e-4,
+                                                         rtol=3e-3):
+        raise AssertionError(f"full-width logits: kernel vs einsum max err "
+                             f"{err}")
+    return err
+
+
+def measure(g) -> dict:
+    """Kernel, plain and library times at the main path's shapes."""
+    B, N, K = MAIN_BATCH, MAIN_LEN, 28
+    logits = torch.randn(B, N, K, generator=g, device="cuda")
+    x = torch.full((B, N), K - 1, dtype=torch.int32, device="cuda")
+    tau = torch.randint(1, MAIN_T + 1, (1, N), generator=g, device="cuda",
+                        dtype=torch.int32).expand(B, N).contiguous()
+    mask = torch.zeros(K, device="cuda")
+    mask[K - 1] = -1e9
+    noise = gumbel_noise(g, (B, N, K), "cuda")
+    t = int(tau[0, 0])
+    kw = dict(mask=mask, gumbel=noise, version=1, temperature=1.0)
+    k1 = lambda: k1_ops.dndm_update(logits, x, tau, t, **kw)  # noqa: E731
+    k1p = lambda: k1_ref.dndm_update(logits, x, tau, t, **kw)  # noqa: E731
+    # bytes: logits + gumbel read, mask read, x and tau read, tokens out
+    k1_bytes = B * N * K * (4 + 4) + K * 4 + B * N * 4 * 3
+    k1_ops_n = B * N * K * 3         # + mask, + gumbel, compare
+    # plain, kernel, kernel, plain
+    p1 = time_ms(k1p, 200)
+    m1 = time_ms(k1, 200)
+    m2 = time_ms(k1, 200)
+    p2 = time_ms(k1p, 200)
+
+    H, hd = 12, 64
+    q = torch.randn(B, N, H, hd, generator=g, device="cuda")
+    k = torch.randn(B, N, H, hd, generator=g, device="cuda")
+    v = torch.randn(B, N, H, hd, generator=g, device="cuda")
+    k2 = lambda: k2_ops.flash_attention(q, k, v)  # noqa: E731
+    k2p = lambda: k2_ref.attention(q, k, v)  # noqa: E731
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    k2_flops = 4 * B * H * N * N * hd
+    k2_bytes = 4 * B * N * H * hd * 4
+    p3 = time_ms(k2p, 50)
+    m3 = time_ms(k2, 50)
+    l3 = time_ms(lib, 50)
+    m4 = time_ms(k2, 50)
+    p4 = time_ms(k2p, 50)
+    return {
+        "dndm_update": {
+            "ms": statistics.median([m1, m2]),
+            "plain_ms": statistics.median([p1, p2]),
+            "bound_ms": max(k1_bytes / HBM_BYTES_PER_S,
+                            k1_ops_n / F32_FLOPS) * 1e3,
+            "bound_by": ("bytes" if k1_bytes / HBM_BYTES_PER_S
+                         >= k1_ops_n / F32_FLOPS else "operations"),
+            "library_ms": None},
+        "flash_attention": {
+            "ms": statistics.median([m3, m4]),
+            "plain_ms": statistics.median([p3, p4]),
+            "bound_ms": max(k2_bytes / HBM_BYTES_PER_S,
+                            k2_flops / F32_FLOPS) * 1e3,
+            "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
+                         >= k2_flops / F32_FLOPS else "operations"),
+            "library_ms": l3},
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    # 1. the card
+    print(gpu_name_and_power(), flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 products must not run in TF32")
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          "matmul.allow_tf32=False", flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = build.library()
+    print(f"kernels: {lib.path.name} ({'built' if lib.built else 'loaded'}"
+          f" by nvcc for sm_90a from {len(build.sources())} sources) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in ptxas_summary(lib.log):
+        print("  " + line)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    # 3. dndm_update vs plain
+    n1, k1_err = check_dndm_update(g)
+    print(f"dndm_update: {n1} cases bitwise equal to plain", flush=True)
+    # 4. flash_attention vs plain
+    n2, k2_err = check_flash_attention(g)
+    print(f"flash_attention: {n2} cases within tolerance (f32 1e-4, bf16 "
+          f"2e-2); max err at (8,256,12,64) f32 {k2_err:.3g}", flush=True)
+
+    # 5. the main path
+    model, sched, done, drain_s, counts = main_path()
+    stats = check_main_path(model, sched, done, counts)
+    logits_err = check_denoiser(model)
+    print(f"main path: {counts}; full-width logits kernel vs einsum max err "
+          f"{logits_err:.3g}", flush=True)
+
+    # 6. times
+    t = measure(g)
+    kernels = [
+        {"name": "dndm_update", "route": "cuda",
+         "source": "src/repro_torch/csrc/dndm_update.cu",
+         "replaces": "src/repro/kernels/dndm_update/kernel.py:34",
+         "launches": counts["dndm_update"], "max_abs_err": float(k1_err),
+         **t["dndm_update"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+         "launches": counts["flash_attention"], "max_abs_err": k2_err,
+         **t["flash_attention"]},
+    ]
+    main_line = {
+        "main_path": "dndm-text8 full width, dndm T=1000, absorbing, sample",
+        "requests": len(done), "tokens_per_request": MAIN_LEN,
+        "batches": stats["batches"], "nfe_timed": stats["timed_nfe"],
+        "nfe_warmup": stats["warmup_nfe"], "nfe_total": stats["total_nfe"],
+        "drain_s": drain_s, "timed_wall_s": stats["timed_wall_s"],
+        "req_per_s": len(done) / drain_s,
+        "ms_per_network_call": 1e3 * stats["timed_wall_s"]
+        / stats["timed_nfe"],
+        "compile_seconds": max(r.compile_seconds for r in done.values()),
+        "logits_max_err_vs_einsum": logits_err,
+    }
+    print(json.dumps(main_line))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Decode-update layer: the one place where a DNDM step decodes x0_hat
+from the (B, N, K) denoiser logits and folds it into the token buffer.
+
+``fused_update`` (select x0 + eq. (9)) goes to the ``dndm_update`` CUDA
+kernel for CUDA tensors and to its plain version for CPU tensors; there is
+no other backend switch.  Decode modes follow ``SamplerConfig.x0_mode``:
+``"argmax"`` picks the highest adjusted logit; ``"sample"`` draws
+categorically by the Gumbel-max trick (argmax of logits/temp + mask +
+Gumbel(0,1) noise), with the noise drawn from the caller's generator on
+the logits' device, so kernel and plain version give bitwise-identical
+tokens for the same noise.
+
+``decode_tokens`` ((token, score) pairs for the confidence-ranked
+samplers) comes with the slice that brings the ``decode_scores`` kernel.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels.dndm_update import ops as _ops
+
+
+def gumbel_noise(generator: torch.Generator, shape,
+                 device=None) -> torch.Tensor:
+    """Gumbel(0, 1) f32 noise, ``-log(-log(u))`` with ``u`` uniform on
+    [tiny, 1) so that no draw is infinite."""
+    if not isinstance(generator, torch.Generator):
+        raise TypeError("Gumbel noise draws from an explicit torch.Generator")
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _gumbel(generator, shape, x0_mode: str, device) -> torch.Tensor | None:
+    if x0_mode == "argmax":
+        return None
+    if x0_mode != "sample":
+        raise ValueError(f"unknown x0_mode {x0_mode!r}")
+    return gumbel_noise(generator, shape, device)
+
+
+@functools.lru_cache(maxsize=32)
+def _logit_mask(noise, device: torch.device) -> torch.Tensor:
+    return noise.logit_mask(torch.float32, device)
+
+
+def fused_update(logits: torch.Tensor, x: torch.Tensor, tau: torch.Tensor,
+                 t: int, noise, cfg, *, version: int = 1,
+                 generator: torch.Generator | None = None,
+                 gumbel: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode x0_hat and apply the eq. (9) token update in one pass.
+
+    ``x_{t-1} = where(tau == t, x0_hat, x_t)`` (``tau >= t`` for
+    Algorithm 3 / version=2).  Returns the updated tokens (B, N) int32.
+
+    ``gumbel`` overrides the noise drawn from ``generator`` (sample mode
+    only) — the tests replay the JAX package's draws through it.
+    """
+    mask = _logit_mask(noise, logits.device)
+    if gumbel is None:
+        gumbel = _gumbel(generator, logits.shape, cfg.x0_mode, logits.device)
+    return _ops.dndm_update(logits, x, tau, int(t), mask=mask,
+                            gumbel=gumbel, version=version,
+                            temperature=cfg.temperature)

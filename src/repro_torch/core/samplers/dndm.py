@@ -1,0 +1,110 @@
+"""DNDM samplers (the paper's contribution).
+
+  * ``sample``        — Algorithm 1 (and Algorithm 3 via ``version=2``):
+    the faithful host-driven loop.  Transition times are *predetermined*,
+    so the host knows the unique-time set before any network call and
+    the network runs exactly ``|T|`` times.  NFE is data-dependent,
+    exactly as in the paper.  One host sync per request (tau -> unique
+    times); none per step.
+  * ``sample_static`` — transition times bucketized onto ``nfe_budget``
+    quantiles of D_tau, so the NFE is fixed; as nfe_budget -> |T| this
+    converges to Algorithm 1.
+
+Both decode through :func:`repro_torch.core.decode.fused_update` — the
+``dndm_update`` CUDA kernel on the card.  ``sample_scan`` (the JAX
+package's lax.cond-gated scan, kept there for equivalence tests) waits
+for a later slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import decode
+from repro_torch.core.noise import NoiseDist
+from repro_torch.core.samplers import loop
+from repro_torch.core.samplers.base import (DenoiseFn, SamplerConfig,
+                                            SamplerOutput)
+from repro_torch.core.transition import TransitionDist
+
+
+def _step_fn(denoise_fn, noise, cfg, tau, cond, version, T, batch, device,
+             generator):
+    """One DNDM network call + fused eq. (9) decode-update."""
+    def step(x, t: int, gumbel):
+        # t / T in f32, as the JAX package computes t_norm
+        t_norm = torch.full((batch,), np.float32(t) / np.float32(T),
+                            dtype=torch.float32, device=device)
+        logits = denoise_fn(x, t_norm, cond)
+        if gumbel is not None:
+            gumbel = loop.as_tensor(gumbel, torch.float32, device)
+        return decode.fused_update(logits, x, tau, t, noise, cfg,
+                                   version=version, generator=generator,
+                                   gumbel=gumbel)
+    return step
+
+
+def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
+           dist: TransitionDist, batch: int, N: int, cond=None,
+           cfg: SamplerConfig = SamplerConfig(), version: int = 1,
+           order: str = "iid", shared_tau: bool = True, device=None,
+           draws=None) -> SamplerOutput:
+    """Algorithm 1 (version=1) / Algorithm 3 (version=2) — faithful.
+
+    Times not in the transition set never touch the network, so
+    wall-clock scales with |T|, not T.
+    """
+    tau, x, gumbels = loop.setup(generator, noise, batch, N, dist=dist,
+                                 order=order, shared=shared_tau,
+                                 device=device, draws=draws)
+    # Predetermined: the whole schedule of network calls is known *now*.
+    tau_np = tau.cpu().numpy()
+    times = loop.unique_times(tau_np)                          # descending
+    step = _step_fn(denoise_fn, noise, cfg, tau, cond, version, dist.T,
+                    batch, device, generator)
+    x = loop.host_loop(times, x, step, gumbels)
+    return SamplerOutput(tokens=x, nfe=len(times),
+                         aux={"tau": tau, "times": times})
+
+
+def quantile_grid(dist: TransitionDist, nfe_budget: int) -> np.ndarray:
+    """Grid times = D_tau quantiles (equal transition mass per call).
+
+    Strictly increasing: when the budget exceeds the number of distinct
+    quantile times the repeats are dropped, so no token is revealed
+    twice; ``len(grid) <= nfe_budget`` is the actual NFE.
+    """
+    probs = dist.probs
+    if probs is None:
+        raise ValueError("need a discretized D_tau")
+    cdf = np.concatenate([[0.0], np.cumsum(probs)])
+    qs = (np.arange(nfe_budget) + 1) / nfe_budget
+    # smallest t with P(tau <= t) >= q  (cdf[t] indexes times directly)
+    grid = np.searchsorted(cdf, qs - 1e-12)
+    grid = np.clip(grid, 1, dist.T).astype(np.int32)     # times 1..T
+    return np.unique(np.maximum.accumulate(grid))
+
+
+def sample_static(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
+                  dist: TransitionDist, batch: int, N: int,
+                  nfe_budget: int, cond=None,
+                  cfg: SamplerConfig = SamplerConfig(), version: int = 1,
+                  order: str = "iid", shared_tau: bool = True, device=None,
+                  draws=None) -> SamplerOutput:
+    """Static-quantile DNDM: NFE fixed at ``len(quantile_grid)``.
+
+    Each token's tau is rounded *up* to the nearest grid time, preserving
+    "every token revealed exactly once" and the reveal order.
+    """
+    grid = quantile_grid(dist, nfe_budget)
+    tau, x, gumbels = loop.setup(generator, noise, batch, N, dist=dist,
+                                 order=order, shared=shared_tau,
+                                 device=device, draws=draws)
+    grid_t = torch.as_tensor(grid, dtype=torch.int32, device=tau.device)
+    idx = torch.clamp(torch.searchsorted(grid_t, tau), 0, len(grid) - 1)
+    tau_b = grid_t[idx].contiguous()                     # bucketized tau
+    step = _step_fn(denoise_fn, noise, cfg, tau_b, cond, version, dist.T,
+                    batch, device, generator)
+    x = loop.host_loop(grid[::-1], x, step, gumbels)
+    return SamplerOutput(tokens=x, nfe=len(grid),
+                         aux={"tau": tau, "grid": grid})

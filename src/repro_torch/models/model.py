@@ -1,0 +1,86 @@
+"""Top-level Model: embeddings, the layer stack, diffusion time
+conditioning, the LM head, and the samplers' denoiser adapter.
+
+Where the JAX package stacks each unit slot's weights along a leading
+``n_super`` axis and runs a ``lax.scan``, the port holds one module per
+layer in an ``nn.ModuleList`` (``blocks[j * len(unit) + i]`` is unit slot
+``i`` of superblock ``j``; ``models/convert.py`` maps JAX checkpoints
+onto it).  Frontend fusion (the audio/vision stub) is not part of this
+slice.
+
+Float32 products stay float32 on the card: the port relies on PyTorch's
+default ``torch.backends.cuda.matmul.allow_tf32 == False``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import device as device_lib
+from repro_torch.models import blocks
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import RMSNorm, TimeEmbed, dense_init
+
+
+class Model(nn.Module):
+    """The denoiser network.  Weights are initialized from ``seed`` with
+    a ``torch.Generator`` on ``device`` (``None`` means ``cuda``, which
+    must exist), or loaded from a JAX checkpoint with
+    :func:`repro_torch.models.convert.load_params`."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        if cfg.frontend:
+            raise NotImplementedError(
+                "frontend stubs come with the model-zoo slice")
+        self.cfg = cfg
+        self.unit, self.n_super = cfg.superblock()
+        dev = device_lib.resolve(device)
+        dt = getattr(torch, cfg.dtype)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        self.embed = dense_init(g, cfg.vocab_size, cfg.d_model, dt, dev,
+                                scale=cfg.vocab_size ** 0.5 * 0.02)
+        self.ln_f = RMSNorm(cfg.d_model, dt, dev, cfg.norm_eps)
+        self.head = (None if cfg.tie_embeddings else
+                     dense_init(g, cfg.d_model, cfg.vocab_size, dt, dev))
+        self.time = (TimeEmbed(g, cfg.d_model, dt, dev)
+                     if cfg.time_conditioning else None)
+        self.blocks = nn.ModuleList(
+            blocks.build(kind, g, cfg, dev) for kind in cfg.block_pattern)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens: torch.Tensor, t: torch.Tensor | None = None,
+                causal: bool | None = None) -> torch.Tensor:
+        """tokens: (B, S) int -> logits (B, S, V)."""
+        cfg = self.cfg
+        if causal is None:
+            causal = not cfg.bidirectional
+        h = F.embedding(tokens, self.embed)
+        if t is not None and self.time is not None:
+            h = h + self.time(t)[:, None]
+        for blk in self.blocks:
+            h = blk(h, causal=causal)
+        h = self.ln_f(h)
+        return h @ (self.embed.T if self.head is None else self.head)
+
+    def denoise_fn(self, cond: dict | None = None):
+        """Wrap into the samplers' ``denoise_fn(x_t, t, cond)`` contract.
+
+        ``cond`` may hold {"prefix_tokens": (B, P)} for conditional
+        generation: the model is fed ``[prefix | x_t]`` with bidirectional
+        attention and only the target segment's logits are returned.
+        """
+        def fn(x_t, t, cond_rt):
+            c = cond_rt if cond_rt is not None else (cond or {})
+            prefix = c.get("prefix_tokens")
+            if prefix is not None:
+                full = torch.cat([prefix.to(x_t.dtype), x_t], dim=1)
+                logits = self.forward(full, t, causal=False)
+                # contiguous: the decode kernel reads (B, N, K) densely
+                return logits[:, prefix.shape[1]:].contiguous()
+            return self.forward(x_t, t, causal=False)
+        return fn

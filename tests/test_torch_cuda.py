@@ -1,0 +1,59 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip where no CUDA device is present (the card is
+looked for inside the fixture, never at import).  On a machine with an
+H100:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels.dndm_update import ops as k1_ops
+from repro_torch.kernels.dndm_update import ref as k1_ref
+from repro_torch.kernels.flash_attention import ops as k2_ops
+from repro_torch.kernels.flash_attention import ref as k2_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("B,N,K", [(1, 16, 32), (2, 64, 257), (8, 256, 28)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dndm_update_kernel_is_bitwise_plain(gen, B, N, K, dtype):
+    logits = torch.randn(B, N, K, generator=gen, device="cuda").to(dtype)
+    x = torch.randint(0, K, (B, N), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    tau = torch.randint(1, 20, (B, N), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    u = torch.rand(B, N, K, generator=gen, device="cuda").clamp_(min=1e-30)
+    gumbel = -torch.log(-torch.log(u))
+    mask = torch.zeros(K, device="cuda")
+    mask[-1] = -1e9
+    before = k1_ops.dndm_update.launches
+    for version in (1, 2):
+        for temp in (1.0, 0.7):
+            kw = dict(mask=mask, gumbel=gumbel, version=version,
+                      temperature=temp)
+            assert torch.equal(k1_ops.dndm_update(logits, x, tau, 5, **kw),
+                               k1_ref.dndm_update(logits, x, tau, 5, **kw))
+    assert k1_ops.dndm_update.launches == before + 4
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (8, 256, 12, 12, 64, False, 0), (8, 256, 12, 4, 64, True, 0),
+    (2, 37, 2, 2, 16, False, 0), (2, 100, 4, 2, 128, False, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(gen, B, S, H, KV, hd, causal,
+                                              window, dtype):
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, KV, hd, generator=gen, device="cuda").to(dtype)
+    got = k2_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = k2_ref.attention(q, k, v, causal=causal, window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
