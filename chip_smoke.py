@@ -12,7 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. flash_attention kernel vs its plain version: f32 within atol/rtol
      1e-4 (the sums run in another order), bf16 within 2e-2 (one bf16
      rounding of the output, as tests/test_kernels.py allows);
-  5. the main path: dndm-text8 at full width (12 layers, d_model 768,
+  5. decode_scores kernel vs its plain version, K in {28, 32, 33, 100,
+     257, 1000} and the ranked path's (8, 128, 28), f32 and bf16, with
+     and without Gumbel noise, temperature 1 and 0.7, mask -1e9 at the
+     last id: tokens bitwise equal, scores within atol/rtol 1e-5 (the
+     kernel's online logsumexp sums in another order);
+  6. the main path: dndm-text8 at full width (12 layers, d_model 768,
      12 heads, d_ff 3072, vocab 28), random weights from seed 0,
      attn_impl="pallas", f32; a GenerationEngine (method "dndm",
      T = 1000 steps, absorbing noise, x0_mode "sample") behind a
@@ -24,9 +29,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      replay of the first batch (its engine key is cold) included; then
      the full-width denoiser's
      logits through the kernel vs through plain einsum attention;
-  6. kernel times at the main path's shapes beside their bounds, the
-     plain versions and, for attention, scaled_dot_product_attention
-     (a yardstick only; the port never calls it).
+  7. the ranked path: dndm-mt at full width (6 layers, d_model 512, 8
+     heads, d_ff 2048, vocab 28), random weights from seed 0, f32,
+     attn_impl="pallas", absorbing noise, x0_mode "sample", T = 1000; one
+     BatchScheduler (max_batch 8, bucket_len 128) drains 8 requests of
+     dndm_topk (Algorithm 4) and 8 of dndm_c_topk (Algorithm 2, top-k),
+     each 128 target tokens after a source prefix of 48-64 tokens.
+     Checks: 128 in-vocab tokens per request and no [MASK] left; the
+     dndm_topk NFE = unique tau values, the dndm_c_topk NFE = 128;
+     decode_scores launches = total NFE, flash_attention launches = 6 x
+     total NFE, dndm_update launches = 0 (warm-up replays included);
+     then the prefixed denoiser's logits through the kernel vs plain
+     einsum attention;
+  8. the registry sweep: every one of the 12 methods once through a
+     GenerationEngine on the dndm-mt model, B = 4, N = 64, T = 50 (ddim
+     with stride 2 and multinomial noise, the rest absorbing): each
+     method's NFE follows its registry rule, decode_scores serves the 8
+     methods that decode through decode_tokens, dndm_update the three
+     DNDM methods, and d3pm launches neither;
+  9. kernel times at the paths' shapes beside their bounds, the plain
+     versions and, for attention, scaled_dot_product_attention (a
+     yardstick only; the port never calls it);
+ 10. one more sampler run of each path's batch shape (dndm on
+     dndm-text8; dndm_topk and dndm_c_topk on dndm-mt with a 56-token
+     prefix) under torch.profiler: device kernel time and kernel launches
+     per network call, the top kernels, and the device busy share (kernel
+     time over the path's timed ms per network call).
 
 The last lines are JSON: the main path, the kernels, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -49,8 +77,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch.configs as configs_lib  # noqa: E402
 from repro_torch.core.decode import gumbel_noise  # noqa: E402
-from repro_torch.core.samplers import loop  # noqa: E402
+from repro_torch.core.samplers import loop, registry  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.decode_scores import ops as k3_ops  # noqa: E402
+from repro_torch.kernels.decode_scores import ref as k3_ref  # noqa: E402
 from repro_torch.kernels.dndm_update import ops as k1_ops  # noqa: E402
 from repro_torch.kernels.dndm_update import ref as k1_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as k2_ops  # noqa: E402
@@ -80,6 +110,19 @@ K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 MAIN_REQUESTS, MAIN_LEN, MAIN_BATCH, MAIN_T = 16, 256, 8, 1000
 
+K3_SHAPES = [(3, 40, K) for K in (28, 32, 33, 100, 257, 1000)] + [(8, 128, 28)]
+K3_TOL = 1e-5
+
+# the ranked path: (method, requests) in submission order
+MT_METHODS = (("dndm_topk", 8), ("dndm_c_topk", 8))
+MT_LEN, MT_BATCH, MT_T, MT_PREFIX = 128, 8, 1000, (48, 64)
+
+SWEEP_B, SWEEP_N, SWEEP_T, SWEEP_STRIDE = 4, 64, 50, 2
+DECODE_TOKENS_METHODS = frozenset({
+    "dndm_topk", "dndm_topk_static", "dndm_c", "dndm_c_topk", "rdm",
+    "rdm_k", "mask_predict", "ddim"})
+FUSED_METHODS = frozenset({"dndm", "dndm2", "dndm_static"})
+
 
 def gpu_name_and_power() -> str:
     out = subprocess.run(
@@ -97,8 +140,8 @@ def ptxas_summary(log: str) -> list[str]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(dndm_update_kernel|flash_attention_kernel)",
-                             mangled)
+            base = re.search(r"(dndm_update_kernel|flash_attention_kernel"
+                             r"|decode_scores_kernel)", mangled)
             dtype = "bf16" if "bfloat16" in mangled else "f32"
             hd = re.search(r"Li(\d+)EE", mangled)
             name = (f"{base.group(1) if base else mangled}<{dtype}"
@@ -189,6 +232,51 @@ def check_flash_attention(g) -> tuple[int, float]:
     return 2 * len(K2_CASES), main_err
 
 
+def check_decode_scores(g) -> tuple[int, float]:
+    """Kernel vs plain on the card: tokens bitwise, scores within
+    K3_TOL; returns (cases, max |score difference|)."""
+    cases, max_err = 0, 0.0
+    for B, N, K in K3_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            logits = torch.randn(B, N, K, generator=g, device="cuda").to(dt)
+            mask = torch.zeros(K, device="cuda")
+            mask[K - 1] = -1e9
+            noise = gumbel_noise(g, (B, N, K), "cuda")
+            for gum in (None, noise):
+                for temp in (1.0, 0.7):
+                    kw = dict(mask=mask, gumbel=gum, temperature=temp)
+                    tok, score = k3_ops.decode_scores(logits, **kw)
+                    ptok, pscore = k3_ref.decode_scores(logits, **kw)
+                    torch.cuda.synchronize()
+                    err = float((score - pscore).abs().max())
+                    max_err = max(max_err, err)
+                    where = (f"at {(B, N, K)} {dt} gumbel={gum is not None} "
+                             f"temp={temp}")
+                    if not torch.equal(tok, ptok):
+                        raise AssertionError(
+                            f"decode_scores tokens != plain {where}: "
+                            f"{int((tok != ptok).sum())} differ")
+                    if not torch.allclose(score, pscore, atol=K3_TOL,
+                                          rtol=K3_TOL):
+                        raise AssertionError(f"decode_scores scores != plain "
+                                             f"{where}: max err {err}")
+                    cases += 1
+    return cases, max_err
+
+
+def reset_counts() -> None:
+    k1_ops.dndm_update.launches = 0
+    k2_ops.flash_attention.launches = 0
+    k3_ops.decode_scores.launches = 0
+
+
+def read_counts(engine) -> dict:
+    return {"dndm_update": k1_ops.dndm_update.launches,
+            "flash_attention": k2_ops.flash_attention.launches,
+            "decode_scores": k3_ops.decode_scores.launches,
+            "network_calls": engine.network_calls}
+
+
 def main_path():
     """Serve 16 requests through the port's entry points; returns the
     model, the scheduler, the finished requests, the drain time and the
@@ -203,15 +291,12 @@ def main_path():
     for _ in range(MAIN_REQUESTS):
         sched.submit(MAIN_LEN)
 
-    k1_ops.dndm_update.launches = 0
-    k2_ops.flash_attention.launches = 0
+    reset_counts()
     engine.network_calls = 0
     t0 = time.perf_counter()
     done = sched.run()
     drain_s = time.perf_counter() - t0
-    counts = {"dndm_update": k1_ops.dndm_update.launches,
-              "flash_attention": k2_ops.flash_attention.launches,
-              "network_calls": engine.network_calls}
+    counts = read_counts(engine)
     return model, sched, done, drain_s, counts
 
 
@@ -237,8 +322,8 @@ def check_main_path(model, sched, done, counts) -> dict:
         B = sched.batch_bucket(len(reqs))
         # replay the batch's tau draw: the first draw of its generator
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        tau, _, _ = loop.setup(gen, engine.noise, B, MAIN_LEN, dist=dist,
-                               shared=True, device=engine.device)
+        tau, *_ = loop.setup(gen, engine.noise, B, MAIN_LEN, dist=dist,
+                             shared=True, device=engine.device)
         n_unique = len(loop.unique_times(tau.cpu().numpy()))
         nfe = reqs[0].nfe
         if nfe != n_unique:
@@ -258,6 +343,8 @@ def check_main_path(model, sched, done, counts) -> dict:
     if counts["dndm_update"] != total_nfe:
         raise AssertionError(f"dndm_update launched {counts['dndm_update']} "
                              f"times for {total_nfe} network calls")
+    if counts["decode_scores"] != 0:
+        raise AssertionError("the dndm path launched decode_scores")
     if counts["flash_attention"] != cfg.n_layers * total_nfe:
         raise AssertionError(
             f"flash_attention launched {counts['flash_attention']} times, "
@@ -267,19 +354,25 @@ def check_main_path(model, sched, done, counts) -> dict:
             "timed_wall_s": timed_wall}
 
 
-def check_denoiser(model) -> float:
-    """Full-width logits through the flash kernel vs plain einsum
+def check_denoiser(model, n_tok: int, prefix_len: int = 0) -> float:
+    """Full-width logits (through the samplers' denoiser, with a source
+    prefix if ``prefix_len``) through the flash kernel vs plain einsum
     attention, same weights, at the repo's logits bar (atol 3e-4, rtol
     3e-3, tests/test_models.py)."""
     plain = Model(model.cfg.replace(attn_impl="einsum"), device="cuda",
                   seed=0)
     g = torch.Generator(device="cuda").manual_seed(1)
-    tok = torch.randint(0, model.cfg.vocab_size, (2, MAIN_LEN), generator=g,
+    tok = torch.randint(0, model.cfg.vocab_size, (2, n_tok), generator=g,
                         device="cuda", dtype=torch.int32)
     t = torch.rand(2, generator=g, device="cuda")
+    cond = None
+    if prefix_len:
+        cond = {"prefix_tokens": torch.randint(
+            0, model.cfg.vocab_size - 1, (2, prefix_len), generator=g,
+            device="cuda", dtype=torch.int32)}
     with torch.inference_mode():
-        a = model(tok, t, causal=False)
-        b = plain(tok, t, causal=False)
+        a = model.denoise_fn()(tok, t, cond)
+        b = plain.denoise_fn()(tok, t, cond)
     torch.cuda.synchronize()
     err = float((a - b).abs().max())
     if not torch.isfinite(a).all() or not torch.allclose(a, b, atol=3e-4,
@@ -287,6 +380,175 @@ def check_denoiser(model) -> float:
         raise AssertionError(f"full-width logits: kernel vs einsum max err "
                              f"{err}")
     return err
+
+
+def mt_path():
+    """The ranked path: 8 dndm_topk and 8 dndm_c_topk requests with
+    source prefixes through one scheduler on full-width dndm-mt; returns
+    the model, the scheduler, the finished requests, the drain time and
+    the launch counts."""
+    cfg = configs_lib.get("dndm-mt").replace(attn_impl="pallas")
+    model = Model(cfg, device="cuda", seed=0)
+    engine = GenerationEngine(model, EngineConfig(
+        method="dndm_topk", steps=MT_T, noise_kind="absorbing",
+        x0_mode="sample"), device="cuda")
+    sched = BatchScheduler(engine, max_batch=MT_BATCH, bucket_len=MT_LEN,
+                           seed=0, device="cuda")
+    g = torch.Generator().manual_seed(0)
+    lo, hi = MT_PREFIX
+    for method, n in MT_METHODS:
+        for _ in range(n):
+            P = int(torch.randint(lo, hi + 1, (1,), generator=g))
+            # source tokens: any id but [MASK]
+            src = torch.randint(0, cfg.vocab_size - 1, (P,), generator=g,
+                                dtype=torch.int32).numpy()
+            sched.submit(MT_LEN, prefix=src, method=method)
+
+    reset_counts()
+    engine.network_calls = 0
+    t0 = time.perf_counter()
+    done = sched.run()
+    drain_s = time.perf_counter() - t0
+    counts = read_counts(engine)
+    return model, sched, done, drain_s, counts
+
+
+def check_mt_path(model, sched, done, counts) -> dict:
+    engine = sched.engine
+    cfg = model.cfg
+    mask_id = engine.noise.mask_id
+    n_req = sum(n for _, n in MT_METHODS)
+    if len(done) != n_req:
+        raise AssertionError(f"{len(done)} of {n_req} requests done")
+    batches: dict[int, list] = {}
+    for r in done.values():
+        if r.result.shape != (MT_LEN,):
+            raise AssertionError(f"request {r.rid}: {r.result.shape} tokens")
+        if (r.result == mask_id).any():
+            raise AssertionError(f"request {r.rid}: [MASK] left")
+        if not ((r.result >= 0) & (r.result < cfg.vocab_size)).all():
+            raise AssertionError(f"request {r.rid}: token out of vocab")
+        batches.setdefault(r.seed, []).append(r)
+    dist = engine.runtime().dist
+    nfe, timed_wall, total_nfe = {}, {}, 0
+    for seed, reqs in batches.items():
+        method = reqs[0].method
+        B = sched.batch_bucket(len(reqs))
+        if method == "dndm_topk":
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            tau, *_ = loop.setup(gen, engine.noise, B, MT_LEN, dist=dist,
+                                 shared=True, device=engine.device)
+            want = len(loop.unique_times(tau.cpu().numpy()))
+        else:
+            want = MT_LEN
+        if reqs[0].nfe != want:
+            raise AssertionError(f"{method} batch: NFE {reqs[0].nfe} != "
+                                 f"{want}")
+        nfe[method] = nfe.get(method, 0) + reqs[0].nfe
+        timed_wall[method] = timed_wall.get(method, 0.0) + reqs[0].batch_wall
+        # each method's one batch meets a cold engine key: an untimed
+        # warm-up replay of the same NFE ran before it
+        total_nfe += 2 * reqs[0].nfe
+    if counts["network_calls"] != total_nfe:
+        raise AssertionError(f"engine made {counts['network_calls']} calls, "
+                             f"expected {total_nfe}")
+    if counts["decode_scores"] != total_nfe:
+        raise AssertionError(f"decode_scores launched "
+                             f"{counts['decode_scores']} times for "
+                             f"{total_nfe} network calls")
+    if counts["flash_attention"] != cfg.n_layers * total_nfe:
+        raise AssertionError(
+            f"flash_attention launched {counts['flash_attention']} times, "
+            f"expected {cfg.n_layers} x {total_nfe}")
+    if counts["dndm_update"] != 0:
+        raise AssertionError("the ranked path launched dndm_update")
+    prefix_lens = sorted(len(r.prefix) for r in done.values())
+    return {"nfe": nfe, "total_nfe": total_nfe, "timed_wall_s": timed_wall,
+            "prefix_len_min": prefix_lens[0],
+            "prefix_len_max": prefix_lens[-1]}
+
+
+def registry_sweep(model) -> dict:
+    """Every registered method once through a GenerationEngine; returns
+    {method: {"nfe", "network_calls", and each kernel's launches}}."""
+    out = {}
+    engines = {kind: GenerationEngine(model, EngineConfig(
+        steps=SWEEP_T, noise_kind=kind, ddim_stride=SWEEP_STRIDE,
+        x0_mode="sample"), device="cuda")
+        for kind in ("absorbing", "multinomial")}
+    for i, name in enumerate(registry.names()):
+        kind = "multinomial" if name == "ddim" else "absorbing"
+        engine = engines[kind]
+        spec = engine.check_method(name)
+        reset_counts()
+        engine.network_calls = 0
+        res, _ = engine.generate(100 + i, SWEEP_B, SWEEP_N, method=name)
+        counts = read_counts(engine)
+        toks = res.tokens
+        if toks.shape != (SWEEP_B, SWEEP_N) or toks.dtype != torch.int32:
+            raise AssertionError(f"{name}: tokens {tuple(toks.shape)} "
+                                 f"{toks.dtype}")
+        if not ((toks >= 0) & (toks < model.cfg.vocab_size)).all():
+            raise AssertionError(f"{name}: token out of vocab")
+        if kind == "absorbing" and (toks == engine.noise.mask_id).any():
+            raise AssertionError(f"{name}: [MASK] left")
+        rt = engine.runtime()
+        if spec.kind == "scan":
+            want = spec.static_nfe(rt, SWEEP_N)
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+            tau, *_ = loop.setup(gen, engine.noise, SWEEP_B, SWEEP_N,
+                                 dist=rt.dist, shared=True,
+                                 device=engine.device)
+            want = len(loop.unique_times(tau.cpu().numpy()))
+        if res.nfe != want:
+            raise AssertionError(f"{name}: NFE {res.nfe}, its rule says "
+                                 f"{want}")
+        calls = counts["network_calls"]            # warm-up replay included
+        if calls != 2 * res.nfe:
+            raise AssertionError(f"{name}: {calls} network calls for NFE "
+                                 f"{res.nfe} and its warm-up")
+        want_k = {"decode_scores": calls if name in DECODE_TOKENS_METHODS
+                  else 0,
+                  "dndm_update": calls if name in FUSED_METHODS else 0,
+                  "flash_attention": model.cfg.n_layers * calls}
+        for k, v in want_k.items():
+            if counts[k] != v:
+                raise AssertionError(f"{name}: {k} launched {counts[k]} "
+                                     f"times, expected {v}")
+        out[name] = {"nfe": res.nfe, **counts}
+    return out
+
+
+def profile_run(engine, method: str, B: int, N: int, prefix_len: int = 0,
+                top: int = 6) -> dict:
+    """One sampler run under torch.profiler: device kernel time and
+    kernel launches per network call, and the kernels that take most of
+    it.  The profiler slows the host, so the path's own unprofiled
+    timing gives the wall time per call."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cond = None
+    if prefix_len:
+        cond = {"prefix_tokens": torch.randint(
+            0, engine.noise.vocab_size - 1, (B, prefix_len), generator=g,
+            device="cuda", dtype=torch.int32)}
+    rt = engine.runtime()
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = registry.run(method, g, rt, B, N, cond)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_us = [e.self_device_time_total for e in kernels]
+    order = sorted(range(len(kernels)), key=lambda i: -dev_us[i])[:top]
+    return {"method": method, "nfe": out.nfe,
+            "device_ms_per_call": sum(dev_us) / out.nfe / 1e3,
+            "launches_per_call": sum(e.count for e in kernels) / out.nfe,
+            "top_kernels": [{"kernel": kernels[i].key[:72],
+                             "ms_per_call": dev_us[i] / out.nfe / 1e3,
+                             "launches_per_call": kernels[i].count / out.nfe}
+                            for i in order]}
 
 
 def measure(g) -> dict:
@@ -327,6 +589,22 @@ def measure(g) -> dict:
     l3 = time_ms(lib, 50)
     m4 = time_ms(k2, 50)
     p4 = time_ms(k2p, 50)
+
+    # decode_scores at the ranked path's shape, with its Gumbel noise
+    B3, N3 = MT_BATCH, MT_LEN
+    logits3 = torch.randn(B3, N3, K, generator=g, device="cuda")
+    noise3 = gumbel_noise(g, (B3, N3, K), "cuda")
+    kw3 = dict(mask=mask, gumbel=noise3, temperature=1.0)
+    k3 = lambda: k3_ops.decode_scores(logits3, **kw3)  # noqa: E731
+    k3p = lambda: k3_ref.decode_scores(logits3, **kw3)  # noqa: E731
+    # bytes: logits + gumbel read, mask read, tokens and scores out
+    k3_bytes = B3 * N3 * K * (4 + 4) + K * 4 + B3 * N3 * (4 + 4)
+    # per element: + mask, + gumbel, compare, exp and the online sum
+    k3_ops_n = B3 * N3 * K * 6
+    p5 = time_ms(k3p, 200)
+    m5 = time_ms(k3, 200)
+    m6 = time_ms(k3, 200)
+    p6 = time_ms(k3p, 200)
     return {
         "dndm_update": {
             "ms": statistics.median([m1, m2]),
@@ -344,6 +622,14 @@ def measure(g) -> dict:
             "bound_by": ("bytes" if k2_bytes / HBM_BYTES_PER_S
                          >= k2_flops / F32_FLOPS else "operations"),
             "library_ms": l3},
+        "decode_scores": {
+            "ms": statistics.median([m5, m6]),
+            "plain_ms": statistics.median([p5, p6]),
+            "bound_ms": max(k3_bytes / HBM_BYTES_PER_S,
+                            k3_ops_n / F32_FLOPS) * 1e3,
+            "bound_by": ("bytes" if k3_bytes / HBM_BYTES_PER_S
+                         >= k3_ops_n / F32_FLOPS else "operations"),
+            "library_ms": None},
     }
 
 
@@ -376,15 +662,39 @@ def main() -> int:
     n2, k2_err = check_flash_attention(g)
     print(f"flash_attention: {n2} cases within tolerance (f32 1e-4, bf16 "
           f"2e-2); max err at (8,256,12,64) f32 {k2_err:.3g}", flush=True)
+    # 5. decode_scores vs plain
+    n3, k3_err = check_decode_scores(g)
+    print(f"decode_scores: {n3} cases, tokens bitwise equal to plain, "
+          f"scores within {K3_TOL}; max score err {k3_err:.3g}", flush=True)
 
-    # 5. the main path
+    # 6. the main path
     model, sched, done, drain_s, counts = main_path()
     stats = check_main_path(model, sched, done, counts)
-    logits_err = check_denoiser(model)
+    logits_err = check_denoiser(model, MAIN_LEN)
     print(f"main path: {counts}; full-width logits kernel vs einsum max err "
           f"{logits_err:.3g}", flush=True)
+    # 10. (run here, while the model is loaded) the path under a profiler
+    main_prof = profile_run(sched.engine, "dndm", MAIN_BATCH, MAIN_LEN)
+    del model, sched
 
-    # 6. times
+    # 7. the ranked path
+    mt_model, mt_sched, mt_done, mt_drain_s, mt_counts = mt_path()
+    mt_stats = check_mt_path(mt_model, mt_sched, mt_done, mt_counts)
+    mt_logits_err = check_denoiser(mt_model, MT_LEN, prefix_len=56)
+    print(f"ranked path: {mt_counts}; NFE {mt_stats['nfe']}; prefixed "
+          f"full-width logits kernel vs einsum max err "
+          f"{mt_logits_err:.3g}", flush=True)
+
+    # 10. the ranked path's samplers under a profiler
+    mt_prof = {m: profile_run(mt_sched.engine, m, MT_BATCH, MT_LEN,
+                              prefix_len=56) for m, _ in MT_METHODS}
+
+    # 8. every registered method
+    sweep = registry_sweep(mt_model)
+    print(f"registry sweep: {len(sweep)} methods; NFE "
+          f"{ {k: v['nfe'] for k, v in sweep.items()} }", flush=True)
+
+    # 9. times
     t = measure(g)
     kernels = [
         {"name": "dndm_update", "route": "cuda",
@@ -397,6 +707,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
          "launches": counts["flash_attention"], "max_abs_err": k2_err,
          **t["flash_attention"]},
+        {"name": "decode_scores", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_scores.cu",
+         "replaces": "src/repro/kernels/decode_scores/kernel.py:35",
+         "launches": mt_counts["decode_scores"], "max_abs_err": k3_err,
+         **t["decode_scores"]},
     ]
     main_line = {
         "main_path": "dndm-text8 full width, dndm T=1000, absorbing, sample",
@@ -410,7 +725,34 @@ def main() -> int:
         "compile_seconds": max(r.compile_seconds for r in done.values()),
         "logits_max_err_vs_einsum": logits_err,
     }
+    main_prof["device_busy_share"] = (main_prof["device_ms_per_call"]
+                                      / main_line["ms_per_network_call"])
+    main_line["profile"] = main_prof
+    mt_timed = sum(mt_stats["timed_wall_s"].values())
+    mt_line = {
+        "ranked_path": "dndm-mt full width, dndm_topk + dndm_c_topk "
+                       "T=1000, absorbing, sample, source prefixes",
+        "requests": len(mt_done), "tokens_per_request": MT_LEN,
+        "prefix_len_min": mt_stats["prefix_len_min"],
+        "prefix_len_max": mt_stats["prefix_len_max"],
+        "nfe_timed": mt_stats["nfe"], "nfe_total": mt_stats["total_nfe"],
+        "launches": mt_counts, "drain_s": mt_drain_s,
+        "timed_wall_s": mt_stats["timed_wall_s"],
+        "req_per_s": len(mt_done) / mt_drain_s,
+        "ms_per_network_call": {
+            m: 1e3 * mt_stats["timed_wall_s"][m] / mt_stats["nfe"][m]
+            for m in mt_stats["nfe"]},
+        "ms_per_network_call_all": 1e3 * mt_timed
+        / sum(mt_stats["nfe"].values()),
+        "logits_max_err_vs_einsum": mt_logits_err,
+    }
+    for m, prof in mt_prof.items():
+        prof["device_busy_share"] = (prof["device_ms_per_call"]
+                                     / mt_line["ms_per_network_call"][m])
+    mt_line["profile"] = mt_prof
     print(json.dumps(main_line))
+    print(json.dumps(mt_line))
+    print(json.dumps({"registry_sweep": sweep}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

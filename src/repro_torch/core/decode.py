@@ -1,17 +1,16 @@
-"""Decode-update layer: the one place where a DNDM step decodes x0_hat
-from the (B, N, K) denoiser logits and folds it into the token buffer.
+"""Decode layer: the one place where a sampler step decodes x0_hat from
+the (B, N, K) denoiser logits.
 
-``fused_update`` (select x0 + eq. (9)) goes to the ``dndm_update`` CUDA
-kernel for CUDA tensors and to its plain version for CPU tensors; there is
+``fused_update`` (select x0 + eq. (9), the DNDM samplers) goes to the
+``dndm_update`` CUDA kernel, and ``decode_tokens`` ((token, score) pairs,
+the confidence-ranked samplers) to the ``decode_scores`` CUDA kernel, for
+CUDA tensors; both go to their plain versions for CPU tensors.  There is
 no other backend switch.  Decode modes follow ``SamplerConfig.x0_mode``:
 ``"argmax"`` picks the highest adjusted logit; ``"sample"`` draws
 categorically by the Gumbel-max trick (argmax of logits/temp + mask +
 Gumbel(0,1) noise), with the noise drawn from the caller's generator on
 the logits' device, so kernel and plain version give bitwise-identical
-tokens for the same noise.
-
-``decode_tokens`` ((token, score) pairs for the confidence-ranked
-samplers) comes with the slice that brings the ``decode_scores`` kernel.
+tokens for the same noise, and the two ops give the same tokens.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels.decode_scores import ops as _sops
 from repro_torch.kernels.dndm_update import ops as _ops
 
 
@@ -65,3 +65,23 @@ def fused_update(logits: torch.Tensor, x: torch.Tensor, tau: torch.Tensor,
     return _ops.dndm_update(logits, x, tau, int(t), mask=mask,
                             gumbel=gumbel, version=version,
                             temperature=cfg.temperature)
+
+
+def decode_tokens(logits: torch.Tensor, noise, cfg, *,
+                  generator: torch.Generator | None = None,
+                  gumbel: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pick x0_hat from logits; returns (tokens (B,N) int32, scores (B,N)
+    f32).
+
+    Scores are the per-token log-probabilities of the chosen token under
+    the noise-free adjusted logits — the quantity DNDM-K, RDM-k,
+    Mask-Predict and DNDM-C rank on (paper App. E).  ``gumbel``
+    overrides the noise drawn from ``generator`` (sample mode only), as in
+    :func:`fused_update`.
+    """
+    mask = _logit_mask(noise, logits.device)
+    if gumbel is None:
+        gumbel = _gumbel(generator, logits.shape, cfg.x0_mode, logits.device)
+    return _sops.decode_scores(logits, mask=mask, gumbel=gumbel,
+                               temperature=cfg.temperature)

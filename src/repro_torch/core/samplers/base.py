@@ -13,6 +13,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import decode
 from repro_torch.core.noise import NoiseDist
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
@@ -30,6 +31,18 @@ class SamplerConfig:
 
     x0_mode: str = "sample"        # "sample" | "argmax"
     temperature: float = 1.0
+
+
+def select_x0(logits: torch.Tensor, noise: NoiseDist, cfg: SamplerConfig,
+              generator: torch.Generator | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pick x0_hat from logits; returns (tokens (B,N), scores (B,N)).
+
+    Thin shim over :func:`repro_torch.core.decode.decode_tokens`, as the
+    JAX package keeps one; the decode layer owns the kernel dispatch and
+    the Gumbel-max sample mode.
+    """
+    return decode.decode_tokens(logits, noise, cfg, generator=generator)
 
 
 def init_noise_tokens(generator, noise: NoiseDist, batch: int, N: int,

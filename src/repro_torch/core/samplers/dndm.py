@@ -32,12 +32,7 @@ def _step_fn(denoise_fn, noise, cfg, tau, cond, version, T, batch, device,
              generator):
     """One DNDM network call + fused eq. (9) decode-update."""
     def step(x, t: int, gumbel):
-        # t / T in f32, as the JAX package computes t_norm
-        t_norm = torch.full((batch,), np.float32(t) / np.float32(T),
-                            dtype=torch.float32, device=device)
-        logits = denoise_fn(x, t_norm, cond)
-        if gumbel is not None:
-            gumbel = loop.as_tensor(gumbel, torch.float32, device)
+        logits = denoise_fn(x, loop.t_norm(t, T, batch, device), cond)
         return decode.fused_update(logits, x, tau, t, noise, cfg,
                                    version=version, generator=generator,
                                    gumbel=gumbel)
@@ -54,9 +49,9 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
     Times not in the transition set never touch the network, so
     wall-clock scales with |T|, not T.
     """
-    tau, x, gumbels = loop.setup(generator, noise, batch, N, dist=dist,
-                                 order=order, shared=shared_tau,
-                                 device=device, draws=draws)
+    tau, x, gumbels, _ = loop.setup(generator, noise, batch, N, dist=dist,
+                                    order=order, shared=shared_tau,
+                                    device=device, draws=draws)
     # Predetermined: the whole schedule of network calls is known *now*.
     tau_np = tau.cpu().numpy()
     times = loop.unique_times(tau_np)                          # descending
@@ -85,6 +80,14 @@ def quantile_grid(dist: TransitionDist, nfe_budget: int) -> np.ndarray:
     return np.unique(np.maximum.accumulate(grid))
 
 
+def bucketize(tau: torch.Tensor, grid: np.ndarray) -> torch.Tensor:
+    """Round each tau up to the nearest grid time (the last grid time
+    for any beyond it); contiguous int32."""
+    grid_t = torch.as_tensor(grid, dtype=torch.int32, device=tau.device)
+    idx = torch.clamp(torch.searchsorted(grid_t, tau), 0, len(grid) - 1)
+    return grid_t[idx].contiguous()
+
+
 def sample_static(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
                   dist: TransitionDist, batch: int, N: int,
                   nfe_budget: int, cond=None,
@@ -97,12 +100,10 @@ def sample_static(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
     "every token revealed exactly once" and the reveal order.
     """
     grid = quantile_grid(dist, nfe_budget)
-    tau, x, gumbels = loop.setup(generator, noise, batch, N, dist=dist,
-                                 order=order, shared=shared_tau,
-                                 device=device, draws=draws)
-    grid_t = torch.as_tensor(grid, dtype=torch.int32, device=tau.device)
-    idx = torch.clamp(torch.searchsorted(grid_t, tau), 0, len(grid) - 1)
-    tau_b = grid_t[idx].contiguous()                     # bucketized tau
+    tau, x, gumbels, _ = loop.setup(generator, noise, batch, N, dist=dist,
+                                    order=order, shared=shared_tau,
+                                    device=device, draws=draws)
+    tau_b = bucketize(tau, grid)
     step = _step_fn(denoise_fn, noise, cfg, tau_b, cond, version, dist.T,
                     batch, device, generator)
     x = loop.host_loop(grid[::-1], x, step, gumbels)

@@ -2,14 +2,20 @@
 
 Draw the predetermined transition-time set and x_T ~ q_noise, then walk
 time backwards calling the denoiser: a host loop over the data-dependent
-unique transition times (Algorithm 1/3) or over a static grid.
+unique transition times (Algorithms 1, 3 and 4) or over a static grid
+(the methods the JAX package runs as one ``lax.scan``).  A host loop over
+a known grid is the port's form of that scan; CUDA-graph capture of it
+comes later.
 
 Every random draw comes from one ``torch.Generator``, in a fixed order:
-tau, then x_T, then one Gumbel slab per network call.  ``draws`` is the
-single injection point that replaces them — ``(tau, x_T, gumbels)`` with
-``gumbels`` one (B, N, K) tensor per call, or None — so that tests can
-replay the JAX package's random streams.  The serving path never passes
-it.
+tau, then x_T, then per network call the Gumbel slab of the decode (or of
+D3PM's categorical draw) and, for RDM's random routing and DDIM's jump,
+one (B, N) uniform.  ``draws`` is the single injection point that
+replaces them — ``(tau, x_T, gumbels, uniforms)``, with ``gumbels`` one
+(B, N, K) array per call and ``uniforms`` one (B, N) array per call,
+either list possibly None — so that tests can replay the JAX package's
+random streams.  The serving path
+never passes it.
 """
 from __future__ import annotations
 
@@ -24,22 +30,29 @@ from repro_torch.core.transition import sample_transition_times
 
 def setup(generator, noise, batch: int, N: int, *, dist=None,
           order: str = "iid", shared: bool = False, device=None,
-          draws=None):
-    """The common sampler preamble: returns (tau, x_T, gumbels).
+          continuous: bool = False, draws=None):
+    """The common sampler preamble: returns (tau, x_T, gumbels,
+    uniforms).
 
-    ``tau`` is None when no transition-time law is given.  ``gumbels``
-    is None unless ``draws`` supplies them.
+    ``tau`` is None when no transition-time law is given (the
+    schedule-driven baselines), f32 in (0, 1] with ``continuous=True``
+    (DNDM-C), else int32.  ``gumbels`` and ``uniforms`` are None unless
+    ``draws`` supplies them.
     """
     if draws is not None:
-        tau, x, gumbels = draws
-        tau = None if tau is None else as_tensor(tau, torch.int32, device)
-        return tau, as_tensor(x, torch.int32, device), gumbels
+        tau, x, gumbels, uniforms = draws
+        if tau is not None:
+            tau = as_tensor(tau, torch.float32 if continuous else torch.int32,
+                            device)
+        return (tau, as_tensor(x, torch.int32, device),
+                _as_tensors(gumbels, device), _as_tensors(uniforms, device))
     tau = None
     if dist is not None:
         tau = sample_transition_times(generator, dist, batch, N, order=order,
-                                      shared=shared, device=device)
+                                      shared=shared, device=device,
+                                      continuous=continuous)
     x = init_noise_tokens(generator, noise, batch, N, device)
-    return tau, x, None
+    return tau, x, None, None
 
 
 def as_tensor(a, dtype, device) -> torch.Tensor:
@@ -48,6 +61,19 @@ def as_tensor(a, dtype, device) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
         a = torch.from_numpy(np.array(a))
     return a.to(device=device, dtype=dtype).contiguous()
+
+
+def _as_tensors(arrays, device):
+    if arrays is None:
+        return None
+    return [as_tensor(a, torch.float32, device) for a in arrays]
+
+
+def t_norm(num, den, batch: int, device) -> torch.Tensor:
+    """(batch,) f32 time ``num / den``, divided in f32 as the JAX samplers
+    compute ``t / T``."""
+    return torch.full((batch,), np.float32(num) / np.float32(den),
+                      dtype=torch.float32, device=device)
 
 
 def unique_times(tau) -> np.ndarray:
@@ -67,9 +93,27 @@ def reveal_series(tau, times, version: int = 1) -> np.ndarray:
     return cmp.sum(axis=-2).mean(axis=0)
 
 
-def host_loop(times, carry, step: Callable, gumbels=None):
-    """Host-driven walk: ``carry = step(carry, t, gumbel_i)`` per time,
-    ``gumbel_i`` the injected slab of call ``i`` or None."""
+def host_loop(times, carry, step: Callable, *per_call):
+    """Host-driven walk: ``carry = step(carry, t, *draws_i)`` per time,
+    where ``draws_i`` holds entry ``i`` of each injected per-call list in
+    ``per_call`` (None for a list that is None)."""
     for i, t in enumerate(times):
-        carry = step(carry, int(t), None if gumbels is None else gumbels[i])
+        carry = step(carry, int(t),
+                     *(None if d is None else d[i] for d in per_call))
     return carry
+
+
+def reveal_topk(x, x0_hat, score, revealed, k_target):
+    """Reveal the top-``score`` unrevealed tokens so that ``k_target``
+    (per row) are revealed; returns (x, revealed).
+
+    Already-revealed tokens are pinned at +inf so the top-``k_target``
+    set always contains them (Algorithm 4's set U); their values are
+    kept.  Ranks are JAX's ``argsort(argsort(-s))`` with ties in index
+    order: ``jnp.argsort`` is stable, ``torch.argsort`` only when
+    asked."""
+    s = torch.where(revealed, torch.inf, score)
+    order = torch.argsort(-s, dim=-1, stable=True)
+    in_top = torch.argsort(order, dim=-1, stable=True) < k_target[:, None]
+    newly = in_top & ~revealed
+    return torch.where(newly, x0_hat, x), revealed | newly

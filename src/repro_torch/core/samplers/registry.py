@@ -1,22 +1,25 @@
 """Sampler registry — method dispatch as data.
 
 One :class:`SamplerSpec` per method describes how to run it (host loop
-with data-dependent NFE, or a static grid with a known NFE), which engine
-knobs it honors and which noise kinds it supports.  The serving engine,
-the scheduler and the launcher CLI enumerate methods from here.
+with data-dependent NFE, or a static grid with a known NFE), its
+static-NFE rule, which engine knobs it honors and which noise kinds it
+supports.  The serving engine, the scheduler and the launcher CLI
+enumerate methods from here.
 
-This slice registers the DNDM methods on the ``dndm_update`` kernel:
-``dndm`` (Algorithm 1), ``dndm2`` (Algorithm 3) and ``dndm_static``.
-The confidence-ranked methods (``dndm_topk*``, ``dndm_c*``, ``rdm*``,
-``mask_predict``, ``ddim``) and ``d3pm`` come with the ``decode_scores``
-slice; call schedules and stepwise steps with continuous serving.
+The 12 methods of the JAX package: the DNDM methods on the
+``dndm_update`` kernel (``dndm``, ``dndm2``, ``dndm_static``), the
+confidence-ranked ones on the ``decode_scores`` kernel (``dndm_topk*``,
+``dndm_c*``, ``rdm*``, ``mask_predict``, ``ddim``) and ``d3pm``, which
+decodes without a kernel.  Call schedules and stepwise steps come with
+continuous serving.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.core.samplers import dndm
+from repro_torch.core.samplers import (d3pm, ddim, dndm, dndm_continuous,
+                                       dndm_topk, mask_predict, rdm)
 from repro_torch.core.samplers.base import SamplerConfig, SamplerOutput
 
 BOTH = frozenset({"absorbing", "multinomial"})
@@ -36,6 +39,8 @@ class SamplerRuntime:
     device: Any                # torch.device every tensor lives on
     order: str = "iid"
     shared_tau: bool = True
+    ddim_stride: int = 1
+    cdist: Any = None          # continuous D_tau (DNDM-C)
 
 
 def resolved_budget(rt: SamplerRuntime, N: int) -> int:
@@ -48,12 +53,14 @@ class SamplerSpec:
 
     ``kind="host"`` — loop over the predetermined transition set; NFE is
     data-dependent.  ``kind="scan"`` — a static time grid, NFE fixed by
-    the grid.  ``run(generator, rt, batch, N, cond, draws)``.
+    the grid and known up front (``static_nfe``).
+    ``run(generator, rt, batch, N, cond, draws)``.
     """
 
     name: str
     kind: str                                     # "host" | "scan"
     run: Callable[..., SamplerOutput]
+    static_nfe: Callable[[SamplerRuntime, int], int] | None = None
     knobs: frozenset = frozenset()                # method-specific knobs
     noise_kinds: frozenset = BOTH
     description: str = ""
@@ -65,6 +72,8 @@ _REGISTRY: dict[str, SamplerSpec] = {}
 def register(spec: SamplerSpec) -> SamplerSpec:
     if spec.kind not in ("host", "scan"):
         raise ValueError(f"{spec.name}: kind must be host|scan")
+    if spec.kind == "scan" and spec.static_nfe is None:
+        raise ValueError(f"{spec.name}: scan samplers need a static_nfe rule")
     if spec.name in _REGISTRY:
         raise ValueError(f"sampler {spec.name!r} already registered")
     _REGISTRY[spec.name] = spec
@@ -79,9 +88,13 @@ def get(name: str) -> SamplerSpec:
                        f"{', '.join(names())}") from None
 
 
-def names() -> tuple[str, ...]:
-    """Registered method names."""
-    return tuple(sorted(_REGISTRY))
+def names(noise_kind: str | None = None) -> tuple[str, ...]:
+    """Registered method names, optionally only those supporting a noise
+    kind."""
+    ns = tuple(sorted(_REGISTRY))
+    if noise_kind is None:
+        return ns
+    return tuple(n for n in ns if noise_kind in _REGISTRY[n].noise_kinds)
 
 
 def specs() -> tuple[SamplerSpec, ...]:
@@ -125,6 +138,63 @@ def _dndm_static(generator, rt, batch, N, cond, draws=None):
                               draws=draws)
 
 
+def _dndm_topk(generator, rt, batch, N, cond, draws=None):
+    return dndm_topk.sample(generator, rt.denoise_fn, rt.noise, rt.dist,
+                            batch, N, cond=cond, cfg=rt.cfg, order=rt.order,
+                            shared_tau=rt.shared_tau, device=rt.device,
+                            draws=draws)
+
+
+def _dndm_topk_static(generator, rt, batch, N, cond, draws=None):
+    return dndm_topk.sample_static(generator, rt.denoise_fn, rt.noise,
+                                   rt.dist, batch, N, resolved_budget(rt, N),
+                                   cond=cond, cfg=rt.cfg, order=rt.order,
+                                   shared_tau=rt.shared_tau,
+                                   device=rt.device, draws=draws)
+
+
+def _dndm_c(topk: bool):
+    def run(generator, rt, batch, N, cond, draws=None):
+        return dndm_continuous.sample(generator, rt.denoise_fn, rt.noise,
+                                      rt.cdist, batch, N, cond=cond,
+                                      cfg=rt.cfg, topk=topk, order=rt.order,
+                                      shared_tau=rt.shared_tau,
+                                      device=rt.device, draws=draws)
+    return run
+
+
+def _d3pm(generator, rt, batch, N, cond, draws=None):
+    return d3pm.sample(generator, rt.denoise_fn, rt.noise, rt.schedule,
+                       batch, N, cond=cond, cfg=rt.cfg, device=rt.device,
+                       draws=draws)
+
+
+def _rdm(topk: bool):
+    def run(generator, rt, batch, N, cond, draws=None):
+        return rdm.sample(generator, rt.denoise_fn, rt.noise, rt.schedule,
+                          batch, N, cond=cond, cfg=rt.cfg, topk=topk,
+                          device=rt.device, draws=draws)
+    return run
+
+
+def _mask_predict(generator, rt, batch, N, cond, draws=None):
+    return mask_predict.sample(generator, rt.denoise_fn, rt.noise, rt.steps,
+                               batch, N, cond=cond, cfg=rt.cfg,
+                               device=rt.device, draws=draws)
+
+
+def _ddim(generator, rt, batch, N, cond, draws=None):
+    return ddim.sample(generator, rt.denoise_fn, rt.noise, rt.schedule,
+                       batch, N, stride=rt.ddim_stride, cond=cond,
+                       cfg=rt.cfg, device=rt.device, draws=draws)
+
+
+def _static_grid_nfe(rt: SamplerRuntime, N: int) -> int:
+    """Actual NFE of the static-quantile variants: the deduped grid can
+    be shorter than the requested budget (small T / concentrated D_tau)."""
+    return len(dndm.quantile_grid(rt.dist, resolved_budget(rt, N)))
+
+
 _TAU = frozenset({"order", "shared_tau", "beta"})
 
 register(SamplerSpec(
@@ -134,5 +204,43 @@ register(SamplerSpec(
     "dndm2", "host", _dndm(2), knobs=_TAU,
     description="Algorithm 3: keep refreshing revealed tokens (tau >= t)"))
 register(SamplerSpec(
-    "dndm_static", "scan", _dndm_static, knobs=_TAU | {"nfe_budget"},
+    "dndm_topk", "host", _dndm_topk, knobs=_TAU,
+    description="Algorithm 4: confidence-ranked reveal, same NFE as Alg 1"))
+register(SamplerSpec(
+    "dndm_static", "scan", _dndm_static, static_nfe=_static_grid_nfe,
+    knobs=_TAU | {"nfe_budget"},
     description="quantile-bucketized Alg 1: fixed NFE"))
+register(SamplerSpec(
+    "dndm_topk_static", "scan", _dndm_topk_static,
+    static_nfe=_static_grid_nfe, knobs=_TAU | {"nfe_budget"},
+    description="quantile-bucketized Alg 4: fixed NFE"))
+register(SamplerSpec(
+    "dndm_c", "scan", _dndm_c(False), static_nfe=lambda rt, N: N,
+    knobs=_TAU, description="Algorithm 2: continuous time, NFE = N"))
+register(SamplerSpec(
+    "dndm_c_topk", "scan", _dndm_c(True), static_nfe=lambda rt, N: N,
+    knobs=_TAU,
+    description="Algorithm 2 + confidence-ranked reveal, NFE = N"))
+register(SamplerSpec(
+    "d3pm", "scan", _d3pm, static_nfe=lambda rt, N: rt.steps,
+    knobs=frozenset({"steps"}),
+    description="D3PM ancestral baseline, NFE = T"))
+register(SamplerSpec(
+    "rdm", "scan", _rdm(False), static_nfe=lambda rt, N: rt.steps,
+    knobs=frozenset({"steps"}),
+    description="RDM baseline (uniform routing), NFE = T"))
+register(SamplerSpec(
+    "rdm_k", "scan", _rdm(True), static_nfe=lambda rt, N: rt.steps,
+    knobs=frozenset({"steps"}),
+    description="RDM-k baseline (top-k routing), NFE = T"))
+register(SamplerSpec(
+    "mask_predict", "scan", _mask_predict,
+    static_nfe=lambda rt, N: rt.steps, knobs=frozenset({"steps"}),
+    noise_kinds=frozenset({"absorbing"}),
+    description="Mask-Predict iterative refinement, NFE = M"))
+register(SamplerSpec(
+    "ddim", "scan", _ddim,
+    static_nfe=lambda rt, N: -(-rt.steps // rt.ddim_stride),
+    knobs=frozenset({"steps", "ddim_stride"}),
+    noise_kinds=frozenset({"multinomial"}),
+    description="discrete DDIM baseline, NFE = ceil(T / stride)"))

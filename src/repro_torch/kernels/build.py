@@ -28,8 +28,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
-# No --use_fast_math: it would make the /temperature of dndm_update
-# approximate and break its bitwise contract with the plain version.
+# No --use_fast_math: it would make the /temperature of dndm_update and
+# decode_scores approximate and break their bitwise token contract with
+# the plain versions, and turn decode_scores' expf/logf into __expf/__logf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _DNDM = [_P] * 6 + [_LL, _I, _I, _I, _F, _P]
 _FLASH = [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_I, _I, _F, _P]
+_SCORES = [_P] * 5 + [_LL, _I, _F, _P]
 ARGTYPES = {
     # logits, gumbel, mask, x, tau, out, rows, K, t, version,
     # temperature, stream
@@ -46,6 +48,9 @@ ARGTYPES = {
     # stream
     "flash_attention_f32": _FLASH,
     "flash_attention_bf16": _FLASH,
+    # logits, gumbel, mask, tok, score, rows, K, temperature, stream
+    "decode_scores_f32": _SCORES,
+    "decode_scores_bf16": _SCORES,
 }
 
 

@@ -31,12 +31,14 @@ def main(argv=None):
     ap.add_argument("--ckpt", default="",
                     help="JAX checkpoint (.npz + .json manifest)")
     ap.add_argument("--method", default="dndm", choices=registry.names(),
-                    help="sampler (from the registry); dndm is the default "
-                         "until dndm_topk_static is ported")
+                    help="sampler (from the registry); ddim needs "
+                         "--noise-kind multinomial, mask_predict absorbing")
     ap.add_argument("--noise-kind", default="absorbing",
                     choices=("absorbing", "multinomial"))
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--nfe-budget", type=int, default=16)
+    ap.add_argument("--ddim-stride", type=int, default=1,
+                    help="DDIM timestep stride: NFE = ceil(steps / stride)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--len", type=int, default=64)
@@ -59,7 +61,8 @@ def main(argv=None):
 
     engine = GenerationEngine(model, EngineConfig(
         method=args.method, steps=args.steps, nfe_budget=args.nfe_budget,
-        noise_kind=args.noise_kind), device=dev)
+        noise_kind=args.noise_kind, ddim_stride=args.ddim_stride),
+        device=dev)
     sched = BatchScheduler(engine, max_batch=args.max_batch,
                            bucket_len=args.len, seed=args.seed, device=dev)
     t0 = time.time()

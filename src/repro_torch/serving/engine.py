@@ -37,6 +37,7 @@ class EngineConfig:
     temperature: float = 1.0
     order: str = "iid"                # iid | l2r | r2l
     shared_tau: bool = True           # one tau-set per batch (paper NFE)
+    ddim_stride: int = 1              # DDIM baseline subsequence stride
 
 
 class GenerationEngine:
@@ -76,8 +77,10 @@ class GenerationEngine:
         return spec
 
     def _laws(self):
-        """(schedule, dist) derived from the *current* config — mutating
-        steps/schedule/beta must never serve stale laws."""
+        """(schedule, dist, cdist) derived from the *current* config —
+        mutating steps/schedule/beta must never serve stale laws.  The
+        continuous law of DNDM-C is Beta(a, b) from ``beta``, else
+        Beta(17, 4), as in the JAX package."""
         c = self.cfg
         lk = (c.schedule, c.steps, c.beta)
         if lk not in self._law_cache:
@@ -85,20 +88,23 @@ class GenerationEngine:
             if c.beta:
                 a, b = c.beta
                 dist = trans_lib.beta_approx(c.steps, a, b)
+                cdist = trans_lib.beta_continuous(a, b)
             else:
                 dist = trans_lib.from_schedule(schedule)
-            self._law_cache[lk] = (schedule, dist)
+                cdist = trans_lib.beta_continuous(17, 4)
+            self._law_cache[lk] = (schedule, dist, cdist)
         return self._law_cache[lk]
 
     def runtime(self) -> registry.SamplerRuntime:
         c = self.cfg
-        schedule, dist = self._laws()
+        schedule, dist, cdist = self._laws()
         return registry.SamplerRuntime(
             denoise_fn=self.denoise_fn, noise=self.noise,
-            schedule=schedule, dist=dist,
+            schedule=schedule, dist=dist, cdist=cdist,
             cfg=SamplerConfig(x0_mode=c.x0_mode, temperature=c.temperature),
             steps=c.steps, nfe_budget=c.nfe_budget, device=self.device,
-            order=c.order, shared_tau=c.shared_tau)
+            order=c.order, shared_tau=c.shared_tau,
+            ddim_stride=c.ddim_stride)
 
     def _cache_key(self, method: str, batch: int, N: int,
                    rt: registry.SamplerRuntime, cond: dict | None):
@@ -108,7 +114,8 @@ class GenerationEngine:
         cond_key = None if cond is None else tuple(
             sorted((k, tuple(v.shape), str(v.dtype)) for k, v in cond.items()))
         return (method, batch, N, c.schedule, c.beta, rt.steps,
-                rt.nfe_budget, rt.order, rt.shared_tau, rt.cfg, cond_key)
+                rt.nfe_budget, rt.order, rt.shared_tau, rt.ddim_stride,
+                rt.cfg, cond_key)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -12,7 +12,11 @@ import pytest
 import torch
 
 import repro.configs as jconfigs
+import jax
+import jax.numpy as jnp
+
 from repro.core import noise as jnoise
+from repro.core import posterior as jpost
 from repro.core import schedules as jsched
 from repro.core import transition as jtrans
 from repro.core.samplers import dndm as jdndm
@@ -20,6 +24,7 @@ from repro.models import config as jconfig
 
 import repro_torch.configs as tconfigs
 from repro_torch.core import noise as tnoise
+from repro_torch.core import posterior as tpost
 from repro_torch.core import schedules as tsched
 from repro_torch.core import transition as ttrans
 from repro_torch.core.samplers import dndm as tdndm
@@ -190,3 +195,93 @@ def test_sample_transition_times_layout(order, shared):
     # nfe_of == the number of distinct values per row
     want = [len(np.unique(r)) for r in tau.numpy()]
     assert ttrans.nfe_of(tau, 30).tolist() == want
+
+
+def _ks(x: np.ndarray, cdf) -> float:
+    """Kolmogorov-Smirnov distance of a sample from a CDF."""
+    x = np.sort(x)
+    n = len(x)
+    F = cdf(x)
+    hi = np.arange(1, n + 1) / n
+    return max(np.abs(hi - F).max(), np.abs(F - (hi - 1 / n)).max())
+
+
+@pytest.mark.parametrize("a,b", [(15.0, 7.0), (17.0, 4.0), (0.5, 0.7)])
+def test_continuous_beta_ks(a, b):
+    """DNDM-C timestamps ~ Beta(a, b) on (0, 1], drawn from a generator
+    by Marsaglia-Tsang gamma variates (shape < 1 included); the bar of
+    tests/test_distribution.py::test_continuous_beta_ks."""
+    n = 4_000
+    cdist = ttrans.beta_continuous(a, b)
+    x = cdist.sample_continuous(torch.Generator().manual_seed(2),
+                                (n,)).numpy()
+    assert x.dtype == np.float32 and (x > 0).all() and (x <= 1).all()
+    ks = _ks(x, lambda v: ttrans._beta_cdf(v, a, b))
+    assert ks < 2.22 / np.sqrt(n) + 2e-3, ks
+
+
+def test_continuous_from_discrete_law_ks():
+    """A probs-backed law: a bin by its probabilities, then a uniform
+    jitter within it — the CDF interpolates cumsum(probs) linearly at the
+    bin edges t/T (tests/test_distribution.py's bar)."""
+    T, n = 50, 4_000
+    dist = ttrans.from_schedule(tsched.cosine(T))
+    x = dist.sample_continuous(torch.Generator().manual_seed(3),
+                               (n,)).numpy()
+    knots = np.concatenate([[0.0], np.cumsum(dist.probs)])
+    ks = _ks(x, lambda v: np.interp(v, np.arange(T + 1) / T, knots))
+    assert ks < 2.22 / np.sqrt(n) + 2e-3, ks
+
+
+@pytest.mark.parametrize("order", ["iid", "l2r"])
+@pytest.mark.parametrize("shared", [False, True])
+def test_continuous_transition_times_layout(order, shared):
+    tau = ttrans.sample_transition_times(
+        torch.Generator().manual_seed(1), ttrans.beta_continuous(17, 4), 3,
+        10, order=order, shared=shared, continuous=True)
+    assert tau.shape == (3, 10) and tau.dtype == torch.float32
+    assert tau.is_contiguous()
+    if shared:
+        assert (tau == tau[:1]).all()
+    if order == "l2r":
+        assert (tau[:, :-1] >= tau[:, 1:]).all()
+
+
+def test_transition_mask_per_step_matches_jax():
+    T = 12
+    tau = np.random.default_rng(0).integers(1, T + 1, (5, 9)).astype(
+        np.int32)
+    want = np.asarray(jtrans.transition_mask_per_step(jnp.asarray(tau), T))
+    got = ttrans.transition_mask_per_step(torch.from_numpy(tau), T)
+    assert got.shape == (T, 5) and got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ttrans.nfe_of(torch.from_numpy(tau),
+                                                T).numpy(),
+                                  np.asarray(jtrans.nfe_of(jnp.asarray(tau),
+                                                           T)))
+
+
+@pytest.mark.parametrize("kind", ["absorbing", "multinomial"])
+def test_posterior_matches_jax(kind):
+    """Same numpy inputs through both posteriors: allclose at 1e-6 (f32
+    softmax-scale products; the op order is the reference's)."""
+    K, B, N = 11, 3, 7
+    rng = np.random.default_rng(4)
+    x_t = rng.integers(0, K, (B, N)).astype(np.int32)
+    x_t[:, ::2] = K - 1                     # masked positions (absorbing)
+    logits = rng.standard_normal((B, N, K)).astype(np.float32)
+    probs = np.array(jax.nn.softmax(jnp.asarray(logits), -1))
+    for t in (1, 5, 9):
+        a = tsched.cosine(10).alphas.astype(np.float32)
+        a_tm1 = np.full((B, 1), a[t - 1], np.float32)
+        a_t = np.full((B, 1), a[t], np.float32)
+        want = np.asarray(jpost.posterior(
+            jnp.asarray(x_t), jnp.asarray(probs), jnp.asarray(a_tm1),
+            jnp.asarray(a_t), jnoise.get(kind, K)))
+        got = tpost.posterior(
+            torch.from_numpy(x_t), torch.from_numpy(probs),
+            torch.from_numpy(a_tm1), torch.from_numpy(a_t),
+            tnoise.get(kind, K))
+        assert got.dtype == torch.float32 and got.shape == (B, N, K)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)

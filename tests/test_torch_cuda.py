@@ -7,6 +7,8 @@ H100:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 import pytest
 import torch
 
+from repro_torch.kernels.decode_scores import ops as k3_ops
+from repro_torch.kernels.decode_scores import ref as k3_ref
 from repro_torch.kernels.dndm_update import ops as k1_ops
 from repro_torch.kernels.dndm_update import ref as k1_ref
 from repro_torch.kernels.flash_attention import ops as k2_ops
@@ -57,3 +59,25 @@ def test_flash_attention_kernel_matches_plain(gen, B, S, H, KV, hd, causal,
     want = k2_ref.attention(q, k, v, causal=causal, window=window)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,N,K", [(3, 40, 28), (3, 40, 32), (3, 40, 33),
+                                   (2, 64, 257), (8, 128, 28)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_scores_kernel_matches_plain(gen, B, N, K, dtype):
+    """Tokens bitwise; scores within 1e-5 (the kernel's online logsumexp
+    sums in another order)."""
+    logits = torch.randn(B, N, K, generator=gen, device="cuda").to(dtype)
+    u = torch.rand(B, N, K, generator=gen, device="cuda").clamp_(min=1e-30)
+    gumbel = -torch.log(-torch.log(u))
+    mask = torch.zeros(K, device="cuda")
+    mask[-1] = -1e9
+    before = k3_ops.decode_scores.launches
+    for gum in (None, gumbel):
+        for temp in (1.0, 0.7):
+            kw = dict(mask=mask, gumbel=gum, temperature=temp)
+            tok, score = k3_ops.decode_scores(logits, **kw)
+            ptok, pscore = k3_ref.decode_scores(logits, **kw)
+            assert torch.equal(tok, ptok)
+            torch.testing.assert_close(score, pscore, atol=1e-5, rtol=1e-5)
+    assert k3_ops.decode_scores.launches == before + 4

@@ -33,6 +33,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for m in ("repro_torch.kernels.dndm_update.ops",
+              "repro_torch.kernels.decode_scores.ops",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.serving.engine", "repro_torch.launch.serve",
               "repro_torch.models.convert"):

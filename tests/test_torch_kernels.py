@@ -6,19 +6,29 @@ kernels themselves are held against these plain versions on the card by
 ``chip_smoke.py`` and tests/test_torch_cuda.py.  Inputs are numpy from a
 fixed seed, handed to both frameworks.
 
-Tolerances: ``dndm_update`` tokens are bitwise (same IEEE op order on
-both sides).  Attention is allclose at 3e-5 in f32 (the flash kernel
-sums in tiles, the plain version in one softmax) and at 2e-2 in bf16,
-the bar of tests/test_kernels.py (one bf16 rounding of the output).
+Tolerances: ``dndm_update`` and ``decode_scores`` tokens are bitwise
+(same IEEE op order on both sides).  ``decode_scores`` scores are
+allclose at 2e-6 against the JAX oracle and against the interpreted
+kernel when K fits one 64-wide vocab tile (the two frameworks' exp, log
+and sum order differ by ulps; the largest difference seen is 9.5e-7), and
+at 2e-5 when K spans several tiles (the online logsumexp; the JAX
+suite's own bar in tests/test_kernels.py).  Attention is allclose at
+3e-5 in f32 (the flash kernel sums in tiles, the plain version in one
+softmax) and at 2e-2 in bf16, the bar of tests/test_kernels.py (one bf16
+rounding of the output).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.decode_scores import ops as j_scores
+from repro.kernels.decode_scores import ref as j_scores_ref
 from repro.kernels.dndm_update import ops as j_dndm
 from repro.kernels.flash_attention import ops as j_flash
 
+from repro_torch.kernels.decode_scores import ops as t_scores
+from repro_torch.kernels.decode_scores import ref as t_scores_ref
 from repro_torch.kernels.dndm_update import ops as t_dndm
 from repro_torch.kernels.dndm_update import ref as t_dndm_ref
 from repro_torch.kernels.flash_attention import ops as t_flash
@@ -81,6 +91,90 @@ def test_dndm_update_ties_go_to_the_lowest_index():
         == [5, 7, 5]
     assert t_dndm.dndm_update(logits, x, tau, 2, version=2)[0].tolist() \
         == [5, 7, 7]
+
+
+# tests/test_kernels.py::test_decode_scores_sweep's shapes, plus the
+# paper's K = 28 (fewer vocab entries than warp lanes) and K = 33
+SCORE_SHAPES = [(1, 16, 32), (3, 40, 100), (2, 64, 257), (1, 7, 1000),
+                (2, 24, 28), (2, 24, 33)]
+
+
+@pytest.mark.parametrize("B,N,K", SCORE_SHAPES)
+@pytest.mark.parametrize("dtype,gumbel", [("f32", False), ("f32", True),
+                                          ("bf16", True)])
+def test_decode_scores_matches_jax(B, N, K, dtype, gumbel):
+    logits, _, _, noise, mask = _dndm_inputs(B, N, K, seed=B * N + K)
+    jdt, tdt = DT[dtype]
+    g = noise if gumbel else None
+    jl = jnp.asarray(logits).astype(jdt)
+    jkw = dict(mask=jnp.asarray(mask), temperature=0.7,
+               gumbel=None if g is None else jnp.asarray(g))
+    ref_tok, ref_score = j_scores_ref.decode_scores_ref(jl, **jkw)
+    int_tok, int_score = j_scores.decode_scores(jl, block_n=16, block_v=64,
+                                                interpret=True, **jkw)
+    tok, score = t_scores.decode_scores(
+        torch.from_numpy(logits).to(tdt), mask=torch.from_numpy(mask),
+        gumbel=None if g is None else torch.from_numpy(g), temperature=0.7)
+    assert tok.dtype == torch.int32 and score.dtype == torch.float32
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ref_tok))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(int_tok))
+    np.testing.assert_allclose(score.numpy(), np.asarray(ref_score),
+                               atol=2e-6, rtol=2e-6)
+    tol = 2e-6 if K <= 64 else 2e-5
+    np.testing.assert_allclose(score.numpy(), np.asarray(int_score),
+                               atol=tol, rtol=tol)
+    assert (score.numpy() <= 1e-6).all()            # log-probabilities
+    assert not (tok.numpy() == K - 1).any()         # masked id never chosen
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+def test_decode_scores_tokens_are_dndm_update_tokens(temperature):
+    """The two decode ops select with the same adjusted logits, so where
+    eq. (9) reveals every token (version 2 at t = 1) their tokens agree;
+    the score is the chosen token's log-softmax."""
+    logits, x, _, noise, mask = _dndm_inputs(3, 20, 28, seed=5)
+    args = [torch.from_numpy(a) for a in (logits, mask, noise)]
+    tau = torch.ones((3, 20), dtype=torch.int32)
+    for gum in (None, args[2]):
+        tok, score = t_scores.decode_scores(args[0], mask=args[1], gumbel=gum,
+                                            temperature=temperature)
+        fused = t_dndm.dndm_update(args[0], torch.from_numpy(x), tau, 1,
+                                   mask=args[1], gumbel=gum, version=2,
+                                   temperature=temperature)
+        assert torch.equal(tok, fused)
+        a = args[0] / temperature + args[1]
+        want = torch.log_softmax(a, -1).gather(-1, tok.long()[..., None])
+        torch.testing.assert_close(score, want[..., 0], atol=1e-6, rtol=1e-6)
+
+
+def test_decode_scores_cpu_path_counts_nothing():
+    t_scores.decode_scores.launches = 0
+    logits, _, _, noise, mask = _dndm_inputs(2, 8, 28, seed=1)
+    kw = dict(mask=torch.from_numpy(mask), gumbel=torch.from_numpy(noise),
+              temperature=0.7)
+    got = t_scores.decode_scores(torch.from_numpy(logits), **kw)
+    want = t_scores_ref.decode_scores(torch.from_numpy(logits), **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert t_scores.decode_scores.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mask", "gumbel", "layout",
+                                 "rank"])
+def test_decode_scores_rejects_what_the_kernel_cannot_take(bad):
+    logits = torch.randn(2, 4, 10)
+    kw = {}
+    if bad == "dtype":
+        logits = logits.half()
+    elif bad == "mask":
+        kw["mask"] = torch.zeros(11)
+    elif bad == "gumbel":
+        kw["gumbel"] = torch.zeros(2, 4, 10, dtype=torch.float64)
+    elif bad == "layout":
+        logits = torch.randn(2, 10, 4).transpose(1, 2)
+    else:
+        logits = torch.randn(8, 10)
+    with pytest.raises((ValueError, TypeError)):
+        t_scores.decode_scores(logits, **kw)
 
 
 def _jax_bias(B, S, causal, window):

@@ -51,7 +51,8 @@ K, B, N, T = 24, 4, 16, 40
 
 def jax_draws(key, dist, noise, batch, n_tok, vocab, *, method, budget=0,
               x0_mode="sample", order="iid", shared=True):
-    """(tau, x_T, gumbels) exactly as the JAX DNDM samplers draw them."""
+    """(tau, x_T, gumbels, uniforms) exactly as the JAX DNDM samplers
+    draw them; they draw no uniforms."""
     k_tau, k_x, k_loop = jax.random.split(key, 3)
     tau = np.asarray(jtrans.sample_transition_times(
         k_tau, dist, batch, n_tok, order=order, shared=shared))
@@ -65,7 +66,7 @@ def jax_draws(key, dist, noise, batch, n_tok, vocab, *, method, budget=0,
                                                 (batch, n_tok, vocab),
                                                 jnp.float32))
                    for i in range(calls)]
-    return tau, x, gumbels
+    return tau, x, gumbels, None
 
 
 def j_oracle(x_t, t, cond):
@@ -146,9 +147,9 @@ def _jax_gaps(jm, params, cfg, engine_cfg, noise, key, batch, n_tok, cond,
     dist = jtrans.from_schedule(jsched.get(engine_cfg.schedule,
                                            engine_cfg.steps))
     budget = engine_cfg.nfe_budget or max(n_tok // 2, 1)
-    tau, x, gumbels = jax_draws(key, dist, noise, batch, n_tok,
-                                cfg.vocab_size, method=method, budget=budget,
-                                x0_mode=engine_cfg.x0_mode)
+    tau, x, gumbels, _ = jax_draws(key, dist, noise, batch, n_tok,
+                                   cfg.vocab_size, method=method,
+                                   budget=budget, x0_mode=engine_cfg.x0_mode)
     version = 2 if method == "dndm2" else 1
     if method == "dndm_static":
         grid = jdndm.quantile_grid(dist, budget)
@@ -309,7 +310,7 @@ def test_engine_replays_a_seed_and_reports_warmup():
     c, _ = eng.generate(12, 2, 8)
     assert not torch.equal(a.aux["tau"], c.aux["tau"])
     with pytest.raises(KeyError, match="available"):
-        eng.generate(0, 1, 8, method="dndm_topk")
+        eng.generate(0, 1, 8, method="no_such_method")
 
 
 def test_scheduler_buckets_and_seeds_are_reproducible():
