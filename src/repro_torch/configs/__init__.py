@@ -1,7 +1,8 @@
 """Config registry: ``--arch <id>`` ids -> ModelConfig factories.
 
-This slice carries the paper's two models; the architecture zoo of
-``repro.configs`` comes with a later slice.
+The port carries the paper's two models and the Mamba-2 hybrid
+``zamba2-2.7b``; the rest of the architecture zoo of ``repro.configs``
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 _ARCH_MODULES = {
     "dndm-text8": "dndm_text8",
     "dndm-mt": "dndm_mt",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 

@@ -203,6 +203,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
     case 64:
       return launch_hd<T, 64>(q, k, v, o, B, S, H, KV, qs, ks, vs, os, causal,
                               window, scale, st);
+    case 80:  // zamba2-2.7b: 2560 / 32 heads; 20 columns per thread
+      return launch_hd<T, 80>(q, k, v, o, B, S, H, KV, qs, ks, vs, os, causal,
+                              window, scale, st);
     case 128:
       return launch_hd<T, 128>(q, k, v, o, B, S, H, KV, qs, ks, vs, os,
                                causal, window, scale, st);

@@ -39,6 +39,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _DNDM = [_P] * 6 + [_LL, _I, _I, _I, _F, _P]
 _FLASH = [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_I, _I, _F, _P]
 _SCORES = [_P] * 5 + [_LL, _I, _F, _P]
+_SSD = [_P] * 6 + [_I] * 6 + [_LL] * 13 + [_P]
 ARGTYPES = {
     # logits, gumbel, mask, x, tau, out, rows, K, t, version,
     # temperature, stream
@@ -51,6 +52,9 @@ ARGTYPES = {
     # logits, gumbel, mask, tok, score, rows, K, temperature, stream
     "decode_scores_f32": _SCORES,
     "decode_scores_bf16": _SCORES,
+    # x, dt, A, Bm, Cm, y, B, S, H, P, N, L, 13 strides, stream
+    "ssd_scan_f32": _SSD,
+    "ssd_scan_bf16": _SSD,
 }
 
 

@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -1,11 +1,16 @@
-"""Block registry of the port: the attention-family blocks ("attn",
-"swa") with pre-norm residual wiring.
+"""Block registry of the port, with pre-norm residual wiring.
+
+The attention-family blocks ("attn", "swa", and "shared_attn", which is
+an "attn" block whose one weight set the model reuses at every site):
 
     h = rmsnorm(x);  x = x + attention(h)
     h = rmsnorm(x);  x = x + mlp(h)
 
-"moe", "mamba2", "mlstm", "slstm" and "shared_attn" blocks come with
-later slices (the model zoo, and Mamba-2 with the ``ssd_scan`` kernel).
+The Mamba-2 block ("mamba2"), bidirectional in denoiser mode:
+
+    x = x + mamba2(rmsnorm(x))
+
+"moe", "mlstm" and "slstm" blocks come with the model-zoo slice.
 """
 from __future__ import annotations
 
@@ -15,18 +20,17 @@ from torch import nn
 from repro_torch.models.attention import Attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.mamba2 import Mamba2
 
 _LATER = {
     "moe": "the model-zoo slice (mixture-of-experts MLP)",
-    "mamba2": "the Mamba-2 slice, with the ssd_scan kernel",
     "mlstm": "the model-zoo slice (xLSTM)",
     "slstm": "the model-zoo slice (xLSTM)",
-    "shared_attn": "the model-zoo slice (Zamba shared attention)",
 }
 
 
 class AttnBlock(nn.Module):
-    """"attn"/"swa" block: windowed iff ``window > 0``."""
+    """"attn"/"swa"/"shared_attn" block: windowed iff ``window > 0``."""
 
     def __init__(self, generator, cfg: ModelConfig, window: int,
                  device=None):
@@ -47,11 +51,29 @@ class AttnBlock(nn.Module):
         return x
 
 
+class Mamba2Block(nn.Module):
+    """"mamba2" block: ``x + mamba2(rmsnorm(x))``, scanning both ways
+    unless causal."""
+
+    def __init__(self, generator, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, getattr(torch, cfg.dtype), device,
+                          cfg.norm_eps)
+        self.mixer = Mamba2(generator, cfg, device)
+
+    def forward(self, x: torch.Tensor, *, causal: bool) -> torch.Tensor:
+        return x + self.mixer(self.ln(x), bidirectional=not causal)
+
+
 def build(kind: str, generator, cfg: ModelConfig, device=None) -> nn.Module:
-    if kind == "attn":
+    """A block's module.  A "shared_attn" block built here holds the one
+    weight set that ``Model`` reuses at every "shared_attn" site."""
+    if kind in ("attn", "shared_attn"):
         return AttnBlock(generator, cfg, 0, device)
     if kind == "swa":
         return AttnBlock(generator, cfg, cfg.sliding_window, device)
+    if kind == "mamba2":
+        return Mamba2Block(generator, cfg, device)
     if kind in _LATER:
         raise NotImplementedError(
             f"{kind!r} blocks are not ported yet; they come with {_LATER[kind]}")

@@ -3,9 +3,11 @@
 The JAX ``Model.init`` tree is ``{"embed", "ln_f": {"scale"}, "head",
 "time": {"w1", "w2"}, "unit": {"b{i}": {...}}}`` where every leaf under
 ``unit/b{i}`` carries a leading ``n_super`` axis.  Slot ``i`` of
-superblock ``j`` is the port's ``blocks[j * len(unit) + i]``.  Dense
-weights keep their ``(d_in, d_out)`` layout; every array is copied
-bitwise.
+superblock ``j`` is the port's ``blocks[j * len(unit) + i]``.  A Zamba
+model's one shared attention block, ``shared/...``, maps onto the port's
+``shared.*``; the tree has no ``unit/b{i}`` entry for the shared slot,
+and the port's sites there hold no parameters.  Dense weights keep their
+``(d_in, d_out)`` layout; every array is copied bitwise.
 """
 from __future__ import annotations
 
@@ -52,8 +54,19 @@ def to_state_dict(params: dict, unit: tuple[str, ...],
 def load_params(model, params: dict) -> None:
     """Copy a JAX parameter tree into ``model`` in place.  Every module
     parameter must be covered and every array must fit exactly."""
-    state = to_state_dict(params, model.unit, model.n_super)
-    own = dict(model.named_parameters())
+    _copy_exact(model, to_state_dict(params, model.unit, model.n_super))
+
+
+def load_tree(module, tree: dict) -> None:
+    """Copy an unstacked JAX parameter tree (one block's or one layer's,
+    e.g. ``repro.models.mamba2.init``'s) into ``module`` in place, under
+    the same rule as :func:`load_params`."""
+    _copy_exact(module, {path.replace("/", "."): torch.from_numpy(
+        np.array(arr)) for path, arr in flatten(tree).items()})
+
+
+def _copy_exact(module, state: dict) -> None:
+    own = dict(module.named_parameters())
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:

@@ -5,8 +5,11 @@ Where the JAX package stacks each unit slot's weights along a leading
 ``n_super`` axis and runs a ``lax.scan``, the port holds one module per
 layer in an ``nn.ModuleList`` (``blocks[j * len(unit) + i]`` is unit slot
 ``i`` of superblock ``j``; ``models/convert.py`` maps JAX checkpoints
-onto it).  Frontend fusion (the audio/vision stub) is not part of this
-slice.
+onto it).  "shared_attn" blocks (Zamba) hold one weight set,
+``self.shared``, run at every "shared_attn" site of the pattern; the
+sites themselves are parameterless placeholders in ``blocks``, so every
+parameter has exactly one name.  Frontend fusion (the audio/vision stub)
+is not part of the port yet.
 
 Float32 products stay float32 on the card: the port relies on PyTorch's
 default ``torch.backends.cuda.matmul.allow_tf32 == False``.
@@ -46,8 +49,13 @@ class Model(nn.Module):
                      dense_init(g, cfg.d_model, cfg.vocab_size, dt, dev))
         self.time = (TimeEmbed(g, cfg.d_model, dt, dev)
                      if cfg.time_conditioning else None)
+        # draw order of the JAX init: embed, head, time, shared, the layers
+        self.shared = (blocks.build("shared_attn", g, cfg, dev)
+                       if "shared_attn" in self.unit else None)
         self.blocks = nn.ModuleList(
-            blocks.build(kind, g, cfg, dev) for kind in cfg.block_pattern)
+            nn.Identity() if kind == "shared_attn"
+            else blocks.build(kind, g, cfg, dev)
+            for kind in cfg.block_pattern)
 
     @property
     def device(self) -> torch.device:
@@ -62,7 +70,9 @@ class Model(nn.Module):
         h = F.embedding(tokens, self.embed)
         if t is not None and self.time is not None:
             h = h + self.time(t)[:, None]
-        for blk in self.blocks:
+        for kind, blk in zip(cfg.block_pattern, self.blocks):
+            if kind == "shared_attn":
+                blk = self.shared
             h = blk(h, causal=causal)
         h = self.ln_f(h)
         return h @ (self.embed.T if self.head is None else self.head)

@@ -49,7 +49,8 @@ def test_paper_configs_match(arch):
 
 
 def test_config_registry_has_only_the_paper_models():
-    assert tconfigs.list_archs() == ["dndm-text8", "dndm-mt"]
+    # the paper's two models, and the Mamba-2 hybrid of the ssd_scan slice
+    assert tconfigs.list_archs() == ["dndm-text8", "dndm-mt", "zamba2-2.7b"]
     with pytest.raises(KeyError):
         tconfigs.get("mixtral-8x7b")
 

@@ -13,6 +13,8 @@ from repro_torch.kernels.dndm_update import ops as k1_ops
 from repro_torch.kernels.dndm_update import ref as k1_ref
 from repro_torch.kernels.flash_attention import ops as k2_ops
 from repro_torch.kernels.flash_attention import ref as k2_ref
+from repro_torch.kernels.ssd_scan import ops as k4_ops
+from repro_torch.kernels.ssd_scan import ref as k4_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -24,7 +26,8 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("B,N,K", [(1, 16, 32), (2, 64, 257), (8, 256, 28)])
+@pytest.mark.parametrize("B,N,K", [(1, 16, 32), (2, 64, 257), (8, 256, 28),
+                                   (4, 256, 32000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dndm_update_kernel_is_bitwise_plain(gen, B, N, K, dtype):
     logits = torch.randn(B, N, K, generator=gen, device="cuda").to(dtype)
@@ -48,7 +51,8 @@ def test_dndm_update_kernel_is_bitwise_plain(gen, B, N, K, dtype):
 
 @pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
     (8, 256, 12, 12, 64, False, 0), (8, 256, 12, 4, 64, True, 0),
-    (2, 37, 2, 2, 16, False, 0), (2, 100, 4, 2, 128, False, 16)])
+    (2, 37, 2, 2, 16, False, 0), (2, 100, 4, 2, 128, False, 16),
+    (4, 256, 32, 32, 80, False, 0), (2, 77, 4, 4, 80, False, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(gen, B, S, H, KV, hd, causal,
                                               window, dtype):
@@ -81,3 +85,26 @@ def test_decode_scores_kernel_matches_plain(gen, B, N, K, dtype):
             assert torch.equal(tok, ptok)
             torch.testing.assert_close(score, pscore, atol=1e-5, rtol=1e-5)
     assert k3_ops.decode_scores.launches == before + 4
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 16, 1, 4, 8, 4), (2, 48, 3, 8, 16, 16), (1, 64, 2, 16, 8, 32),
+    (2, 33, 2, 8, 8, 16), (4, 256, 80, 64, 64, 128),
+    (2, 200, 8, 64, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(gen, B, S, H, P, N, chunk, dtype):
+    """The sweep shapes of tests/test_kernels.py, the zamba2 path's shape
+    and a ragged one, at that test's bars: 3e-5 in f32, 5e-2 in bf16."""
+    x = (torch.randn(B, S, H, P, generator=gen, device="cuda") * 0.5).to(dtype)
+    dtv = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device="cuda")).to(dtype)
+    A = -torch.exp(torch.randn(H, generator=gen, device="cuda") * 0.3)
+    Bm = (torch.randn(B, S, N, generator=gen, device="cuda") * 0.3).to(dtype)
+    Cm = (torch.randn(B, S, N, generator=gen, device="cuda") * 0.3).to(dtype)
+    before = k4_ops.ssd_scan.launches
+    got, _ = k4_ops.ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk)
+    want, _ = k4_ref.ssd_chunked(x, dtv, A, Bm, Cm, chunk)
+    assert k4_ops.ssd_scan.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    tol = 3e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)

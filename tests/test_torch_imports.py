@@ -35,6 +35,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     for m in ("repro_torch.kernels.dndm_update.ops",
               "repro_torch.kernels.decode_scores.ops",
               "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.ssd_scan.ops",
+              "repro_torch.models.mamba2",
               "repro_torch.serving.engine", "repro_torch.launch.serve",
               "repro_torch.models.convert"):
         assert m in res["modules"]

@@ -198,6 +198,8 @@ FLASH_CASES = [
     # ... plus ragged S, grouped-query heads and sliding windows
     (2, 37, 2, 2, 16, False, 0), (2, 37, 4, 2, 16, True, 0),
     (2, 40, 4, 2, 32, True, 8), (1, 40, 4, 1, 32, False, 8),
+    # zamba2-2.7b's head dim (2560 / 32 heads)
+    (2, 40, 4, 4, 80, False, 0),
 ]
 
 

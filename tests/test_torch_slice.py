@@ -9,8 +9,8 @@ the decode draws.
 
 * Samplers: with an integer-valued oracle denoiser both frameworks
   compute exactly the same numbers, so tokens and NFE are bitwise equal.
-* The whole slice: the reduced ``dndm-text8`` / ``dndm-mt`` denoiser
-  with bridged weights, behind the engine and the drain scheduler.  Its
+* The whole slice: the reduced ``dndm-text8`` / ``dndm-mt`` /
+  ``zamba2-2.7b`` denoiser with bridged weights, behind the engine and the drain scheduler.  Its
   logits agree to ~1e-5, not bitwise, so a token may differ where JAX's
   top-2 adjusted logits are closer than 1e-4; the test asserts that gap
   for every position that differs.  NFE is equal.
@@ -176,6 +176,10 @@ SLICE_CASES = [
     ("dndm-text8", "dndm", False),
     ("dndm-text8", "dndm_static", False),
     ("dndm-mt", "dndm2", True),
+    # the Mamba-2 hybrid: bidirectional mamba2 blocks + a shared attention
+    # block; the JAX denoiser runs the chunked _ssd_scan_ref
+    ("zamba2-2.7b", "dndm", False),
+    ("zamba2-2.7b", "dndm2", True),
 ]
 
 
@@ -347,6 +351,16 @@ def test_entry_points_raise_without_a_gpu_and_a_device(monkeypatch):
         TBatchScheduler(cpu_engine)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--reduced", "--requests", "1", "--len", "8"])
+
+
+def test_serve_cli_serves_zamba2_on_the_cpu(capsys):
+    done = tserve.main(["--arch", "zamba2-2.7b", "--reduced", "--requests",
+                        "2", "--max-batch", "2", "--len", "20", "--steps",
+                        "10", "--device", "cpu"])
+    assert len(done) == 2
+    assert all(r.result.shape == (20,) and (r.result < 256).all()
+               for r in done.values())
+    assert "2 requests" in capsys.readouterr().out
 
 
 def test_serve_cli_on_the_cpu(capsys):
