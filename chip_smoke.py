@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      sm_90a (at first use, into ``build/``);
   3. dndm_update kernel vs its plain version: tokens bitwise equal;
   4. flash_attention kernel vs its plain version: f32 within atol/rtol
-     1e-4 (the sums run in another order), bf16 within 2e-2 (one bf16
-     rounding of the output, as tests/test_kernels.py allows);
+     1e-4 (the sums run in another order, the products as 3xTF32 on the
+     tensor cores), bf16 within 2e-2 (one bf16 rounding of the output, as
+     tests/test_kernels.py allows); the ranked path's prefixed lengths
+     (S = 179, 184) included;
   5. decode_scores kernel vs its plain version, K in {28, 32, 33, 100,
      257, 1000} and the ranked path's (8, 128, 28), f32 and bf16, with
      and without Gumbel noise, temperature 1 and 0.7, mask -1e9 at the
@@ -23,6 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      bf16), then the zamba2 path's shape (B, S, H, P, N, L) = (4, 256,
      80, 64, 64, 128) and a ragged S = 200 in f32, where y is also held
      against the exact recurrence ref.ssd_sequential (bar SSD_FULL_TOL);
+  5c. by torch.profiler, the CUDA kernels of one ssd_scan call (its
+     passes) and of PyTorch's f32 scaled_dot_product_attention (the
+     yardstick's backend), with their device time;
   6. the main path: dndm-text8 at full width (12 layers, d_model 768,
      12 heads, d_ff 3072, vocab 28), random weights from seed 0,
      attn_impl="pallas", f32; a GenerationEngine (method "dndm",
@@ -65,9 +70,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode_scores = 0; then the full-width logits of one call through
      the kernels vs the plain route (ref.ssd_chunked and einsum
      attention); then one profiled sampler run;
-  9. kernel times at the paths' shapes beside their bounds, the plain
-     versions and, for attention, scaled_dot_product_attention (a
-     yardstick only; the port never calls it);
+  9. kernel times at the paths' shapes beside their bounds (bytes or f32
+     flops on the CUDA cores; for flash_attention and ssd_scan also the
+     tensor-core bound, their flops at a third of the TF32 rate), the
+     plain versions and, for attention, scaled_dot_product_attention (a
+     yardstick only; the port never calls it), flash_attention also at
+     the ranked path's shape (8, 184, 8, 64).  Two readings: ``ms``
+     launch-paced, the host enqueueing while the device runs (what a
+     path pays per call), and ``device_ms`` with each timed run queued
+     behind a busy-wait kernel (the kernels' own time);
  10. one more sampler run of each path's batch shape (dndm on
      dndm-text8; dndm_topk and dndm_c_topk on dndm-mt with a 56-token
      prefix) under torch.profiler: device kernel time and kernel launches
@@ -110,10 +121,14 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serving import (BatchScheduler, EngineConfig,  # noqa: E402
                                  GenerationEngine)
 
-# H100 SXM data sheet (dense): HBM rate and f32 rate outside the tensor
-# cores, at the full 700 W power limit.
+# H100 SXM data sheet (dense): HBM rate, f32 rate outside the tensor
+# cores and TF32 rate of the tensor cores, at the full 700 W power limit.
+# The tensor-core kernels (flash_attention, ssd_scan) split each f32
+# product in three TF32 products (3xTF32), so their f32-accurate rate is a
+# third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 K1_SHAPES = [(1, 16, 32), (3, 40, 100), (2, 64, 257), (1, 7, 1000),
              (8, 256, 28), (4, 256, 32000)]
@@ -128,7 +143,9 @@ K2_CASES = ([(B, S, H, H, hd, c, 0)
                (2, 100, 4, 2, 128, False, 16),    # bidirectional window
                (2, 37, 2, 2, 16, False, 0),       # ragged S
                (4, 256, 32, 32, 80, False, 0),    # zamba2's shared block
-               (2, 77, 4, 4, 80, False, 0)])      # hd 80, ragged S
+               (2, 77, 4, 4, 80, False, 0),       # hd 80, ragged S
+               (8, 184, 8, 8, 64, False, 0),      # the ranked path's
+               (8, 179, 8, 8, 64, False, 0)])     # prefixed lengths
 K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 MAIN_REQUESTS, MAIN_LEN, MAIN_BATCH, MAIN_T = 16, 256, 8, 1000
@@ -178,12 +195,16 @@ def ptxas_summary(log: str) -> list[str]:
         if m:
             mangled = m.group(1)
             base = re.search(r"(dndm_update_kernel|flash_attention_kernel"
-                             r"|decode_scores_kernel|ssd_scan_kernel)",
+                             r"|decode_scores_kernel|ssd_state_kernel"
+                             r"|ssd_carry_kernel|ssd_output_kernel)",
                              mangled)
-            dtype = "bf16" if "bfloat16" in mangled else "f32"
+            dtype = ("bf16" if "bfloat16" in mangled else
+                     "f32" if re.search(r"I(f|fLi\d+E)E", mangled) else "")
             hd = re.search(r"Li(\d+)EE", mangled)
-            name = (f"{base.group(1) if base else mangled}<{dtype}"
-                    f"{', hd=' + hd.group(1) if hd else ''}>")
+            args = ", ".join(a for a in (dtype, f"hd={hd.group(1)}" if hd
+                                         else "") if a)
+            name = (f"{base.group(1) if base else mangled}"
+                    f"{f'<{args}>' if args else ''}")
         elif "spill stores" in line:
             spill = line.strip()
         elif "ptxas info    : Used" in line and name:
@@ -194,7 +215,10 @@ def ptxas_summary(log: str) -> list[str]:
 
 def time_ms(fn, iters: int, repeats: int = 5) -> float:
     """Median over ``repeats`` of the mean time of ``iters`` launches,
-    by CUDA events, after a warm-up."""
+    by CUDA events, after a warm-up.  The host enqueues while the device
+    runs, so a call whose host work (a wrapper's checks and launch) takes
+    longer than its kernels is paced by the host: this is the time a path
+    pays per call."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -209,6 +233,47 @@ def time_ms(fn, iters: int, repeats: int = 5) -> float:
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
+
+
+def device_time_ms(fn, iters: int,
+                   repeats: int = 5) -> tuple[float, float]:
+    """As ``time_ms``, but each timed run is queued behind a busy-wait
+    kernel that lasts longer than the host takes to enqueue the run, so
+    the events time the device's work back to back: the kernels' own
+    time, without the host's pace.  Returns (device ms, host ms) per
+    call, the second the host's wall time to make one call (a wrapper's
+    checks, allocation and launch) while the device is busy."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # cycles at up to 2 GHz for twice the enqueue time, and 1 ms at least
+    wait_cycles = int(2e9 * max(2 * enqueue_s, 1e-3))
+    samples, host = [], []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(wait_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / iters)
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples), statistics.median(host)
+
+
+def device_fields(*readings: tuple[float, float]) -> dict:
+    """``device_ms`` and ``host_ms``, medians of ``device_time_ms``
+    readings of one kernel."""
+    return {"device_ms": statistics.median(r[0] for r in readings),
+            "host_ms": statistics.median(r[1] for r in readings)}
 
 
 def check_dndm_update(g) -> tuple[int, int]:
@@ -673,12 +738,58 @@ def profile_run(engine, method: str, B: int, N: int, prefix_len: int = 0,
                             for i in order]}
 
 
-def bound(n_bytes: float, n_flops: float) -> dict:
+def bound(n_bytes: float, n_flops: float,
+          tensor_cores: bool = False) -> dict:
     """The least time for ``n_bytes`` moved and ``n_flops`` f32 operations
-    at the card's peaks, and which of the two sets it."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS
-    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    at the card's peaks, and which of the two sets it: ``bound_ms`` and
+    ``bound_by`` with f32 on the CUDA cores, and under ``bounds`` each
+    computed bound by name; for a 3xTF32 kernel also the tensor-core
+    bound, its operations at a third of the TF32 rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S
+    rates = {"f32_cuda_cores": F32_FLOPS}
+    if tensor_cores:
+        rates["tf32x3_tensor_cores"] = TF32_FLOPS / 3
+    bounds = {name: {"ms": max(by_bytes, n_flops / rate) * 1e3,
+                     "by": ("bytes" if by_bytes >= n_flops / rate
+                            else "operations")}
+              for name, rate in rates.items()}
+    cores = bounds["f32_cuda_cores"]
+    return {"bound_ms": cores["ms"], "bound_by": cores["by"],
+            "bounds": bounds}
+
+
+def device_kernels(fn, calls: int = 5) -> list[dict]:
+    """The CUDA kernels that one call of ``fn`` launches, as the profiler
+    sees them over ``calls`` calls: name, launches and device microseconds
+    per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [{"kernel": e.key[:96], "launches": e.count / calls,
+             "us": e.self_device_time_total / calls}
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+
+
+def device_kernel_lists(g) -> dict:
+    """The CUDA kernels of one ssd_scan call at the zamba2 shape (the
+    wrapper launches the kernel's passes) and of PyTorch's f32
+    scaled_dot_product_attention at the text8 shape (the yardstick's
+    backend).  Run before the paths' profiled runs: after them this
+    process's profiler reported no device events."""
+    B, S, H, P, N, L = K4_FULL[0]
+    ins = ssd_inputs(g, B, S, H, P, N, torch.float32)
+    q, k, v = (torch.randn(MAIN_BATCH, 12, MAIN_LEN, 64, generator=g,
+                           device="cuda") for _ in range(3))
+    return {"ssd_scan": device_kernels(
+                lambda: k4_ops.ssd_scan(*ins, chunk=L)),
+            "scaled_dot_product_attention": device_kernels(
+                lambda: F.scaled_dot_product_attention(q, k, v))}
 
 
 def ssd_flops(B, S, H, P, N, L) -> int:
@@ -695,8 +806,11 @@ def ssd_flops(B, S, H, P, N, L) -> int:
 def measure_zamba(g) -> dict:
     """Kernel, plain and library times at the zamba2 path's shapes:
     ssd_scan at (4, 256, 80, 64, 64, 128), flash_attention at (4, 256, 32,
-    80), dndm_update at (4, 256, 32000); all f32, plain, kernel, kernel,
-    plain."""
+    80), dndm_update at (4, 256, 32000); all f32.  ``ms``, ``plain_ms`` and
+    ``library_ms`` launch-paced (``time_ms``) in the order plain, kernel
+    (library), kernel (library), plain; ``device_ms`` and
+    ``library_device_ms`` by ``device_time_ms``, kernel and library
+    alternating."""
     B, S, H, P, N, L = K4_FULL[0]
     ins = ssd_inputs(g, B, S, H, P, N, torch.float32)
     k4 = lambda: k4_ops.ssd_scan(*ins, chunk=L)  # noqa: E731
@@ -704,12 +818,13 @@ def measure_zamba(g) -> dict:
     # bytes: x, dt, A, B, C read once, y written once
     k4_bytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N)
     p1, m1, m2, p2 = (time_ms(f, 20) for f in (k4p, k4, k4, k4p))
+    d1, d2 = (device_time_ms(k4, 20) for _ in range(2))
+    k4_flops = ssd_flops(B, S, H, P, N, L)
     out = {"ssd_scan": {
         "ms": statistics.median([m1, m2]),
+        **device_fields(d1, d2),
         "plain_ms": statistics.median([p1, p2]),
-        **bound(k4_bytes, ssd_flops(B, S, H, P, N, L)),
-        "kernel_flops": 2 * B * H * -(-S // L) * (L * L * (N + P)
-                                                  + 2 * L * N * P),
+        **bound(k4_bytes, k4_flops, tensor_cores=True),
         "library_ms": None}}
 
     Hq, hd = 32, 80
@@ -719,12 +834,17 @@ def measure_zamba(g) -> dict:
     k2 = lambda: k2_ops.flash_attention(q, k, v)  # noqa: E731
     k2p = lambda: k2_ref.attention(q, k, v)  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
-    p3, m3, l3, m4, p4 = (time_ms(f, 50) for f in (k2p, k2, lib, k2, k2p))
+    p3, m3, l3, m4, l4, p4 = (time_ms(f, 50)
+                              for f in (k2p, k2, lib, k2, lib, k2p))
+    d3, dl3, d4, dl4 = (device_time_ms(f, 50) for f in (k2, lib, k2, lib))
+    k2_bytes, k2_flops = 4 * B * S * Hq * hd * 4, 4 * B * Hq * S * S * hd
     out["flash_attention"] = {
         "shape": [B, S, Hq, hd], "ms": statistics.median([m3, m4]),
+        **device_fields(d3, d4),
         "plain_ms": statistics.median([p3, p4]),
-        **bound(4 * B * S * Hq * hd * 4, 4 * B * Hq * S * S * hd),
-        "library_ms": l3}
+        **bound(k2_bytes, k2_flops, tensor_cores=True),
+        "library_ms": statistics.median([l3, l4]),
+        "library_device_ms": statistics.median([dl3[0], dl4[0]])}
 
     K = 32000
     logits = torch.randn(B, S, K, generator=g, device="cuda")
@@ -739,8 +859,10 @@ def measure_zamba(g) -> dict:
     k1 = lambda: k1_ops.dndm_update(logits, x, tau, t, **kw)  # noqa: E731
     k1p = lambda: k1_ref.dndm_update(logits, x, tau, t, **kw)  # noqa: E731
     p5, m5, m6, p6 = (time_ms(f, 50) for f in (k1p, k1, k1, k1p))
+    d5, d6 = (device_time_ms(k1, 50) for _ in range(2))
     out["dndm_update"] = {
         "shape": [B, S, K], "ms": statistics.median([m5, m6]),
+        **device_fields(d5, d6),
         "plain_ms": statistics.median([p5, p6]),
         **bound(B * S * K * 8 + K * 4 + B * S * 12, B * S * K * 3),
         "library_ms": None}
@@ -748,7 +870,8 @@ def measure_zamba(g) -> dict:
 
 
 def measure(g) -> dict:
-    """Kernel, plain and library times at the main path's shapes."""
+    """Kernel, plain and library times at the main path's shapes, as
+    ``measure_zamba`` takes them."""
     B, N, K = MAIN_BATCH, MAIN_LEN, 28
     logits = torch.randn(B, N, K, generator=g, device="cuda")
     x = torch.full((B, N), K - 1, dtype=torch.int32, device="cuda")
@@ -769,6 +892,7 @@ def measure(g) -> dict:
     m1 = time_ms(k1, 200)
     m2 = time_ms(k1, 200)
     p2 = time_ms(k1p, 200)
+    d1, d2 = (device_time_ms(k1, 200) for _ in range(2))
 
     H, hd = 12, 64
     q = torch.randn(B, N, H, hd, generator=g, device="cuda")
@@ -784,7 +908,26 @@ def measure(g) -> dict:
     m3 = time_ms(k2, 50)
     l3 = time_ms(lib, 50)
     m4 = time_ms(k2, 50)
+    l4 = time_ms(lib, 50)
     p4 = time_ms(k2p, 50)
+    d3, dl3, d4, dl4 = (device_time_ms(f, 50) for f in (k2, lib, k2, lib))
+
+    # flash_attention at the ranked path's profiled shape: dndm-mt's 8
+    # heads of 64 over 128 target tokens after a 56-token prefix
+    Hr, Sr = 8, MT_LEN + 56
+    qr, kr, vr = (torch.randn(MT_BATCH, Sr, Hr, hd, generator=g,
+                              device="cuda") for _ in range(3))
+    qrt, krt, vrt = (a.transpose(1, 2) for a in (qr, kr, vr))
+    k2r = lambda: k2_ops.flash_attention(qr, kr, vr)  # noqa: E731
+    k2rp = lambda: k2_ref.attention(qr, kr, vr)  # noqa: E731
+    libr = lambda: F.scaled_dot_product_attention(qrt, krt,  # noqa: E731
+                                                  vrt)
+    pr1, mr1, lr1, mr2, lr2, pr2 = (time_ms(f, 50) for f in (
+        k2rp, k2r, libr, k2r, libr, k2rp))
+    dr1, dlr1, dr2, dlr2 = (device_time_ms(f, 50)
+                            for f in (k2r, libr, k2r, libr))
+    kr_bytes = 4 * MT_BATCH * Sr * Hr * hd * 4
+    kr_flops = 4 * MT_BATCH * Hr * Sr * Sr * hd
 
     # decode_scores at the ranked path's shape, with its Gumbel noise
     B3, N3 = MT_BATCH, MT_LEN
@@ -801,17 +944,31 @@ def measure(g) -> dict:
     m5 = time_ms(k3, 200)
     m6 = time_ms(k3, 200)
     p6 = time_ms(k3p, 200)
+    d5, d6 = (device_time_ms(k3, 200) for _ in range(2))
     return {
         "dndm_update": {
             "ms": statistics.median([m1, m2]),
+            **device_fields(d1, d2),
             "plain_ms": statistics.median([p1, p2]),
             **bound(k1_bytes, k1_ops_n), "library_ms": None},
         "flash_attention": {
             "ms": statistics.median([m3, m4]),
+            **device_fields(d3, d4),
             "plain_ms": statistics.median([p3, p4]),
-            **bound(k2_bytes, k2_flops), "library_ms": l3},
+            **bound(k2_bytes, k2_flops, tensor_cores=True),
+            "library_ms": statistics.median([l3, l4]),
+            "library_device_ms": statistics.median([dl3[0], dl4[0]])},
+        "flash_attention_ranked": {
+            "shape": [MT_BATCH, Sr, Hr, hd],
+            "ms": statistics.median([mr1, mr2]),
+            **device_fields(dr1, dr2),
+            "plain_ms": statistics.median([pr1, pr2]),
+            **bound(kr_bytes, kr_flops, tensor_cores=True),
+            "library_ms": statistics.median([lr1, lr2]),
+            "library_device_ms": statistics.median([dlr1[0], dlr2[0]])},
         "decode_scores": {
             "ms": statistics.median([m5, m6]),
+            **device_fields(d5, d6),
             "plain_ms": statistics.median([p5, p6]),
             **bound(k3_bytes, k3_ops_n), "library_ms": None},
     }
@@ -865,6 +1022,11 @@ def main() -> int:
           f"{k4_check['max_err_f32']:.3g}, bf16 "
           f"{k4_check['max_err_bf16']:.3g}; full width "
           f"{k4_check['full']}", flush=True)
+    dev_kernels = device_kernel_lists(g)
+    for name, ks in dev_kernels.items():
+        print(f"{name}: {len(ks)} CUDA kernel(s) per call: "
+              + "; ".join(f"{d['kernel']} x{d['launches']:g} "
+                          f"{d['us']:.1f} us" for d in ks), flush=True)
     lap("kernel_checks")
 
     # 6. the main path
@@ -940,7 +1102,7 @@ def main() -> int:
          "launches": z_counts["ssd_scan"],
          "max_abs_err": max(k4_check["max_err_f32"],
                             k4_check["full"]["vs_chunked"]),
-         **{k: v for k, v in tz["ssd_scan"].items() if k != "kernel_flops"}},
+         **tz["ssd_scan"]},
     ]
     main_line = {
         "main_path": "dndm-text8 full width, dndm T=1000, absorbing, sample",
@@ -974,6 +1136,7 @@ def main() -> int:
         "ms_per_network_call_all": 1e3 * mt_timed
         / sum(mt_stats["nfe"].values()),
         "logits_max_err_vs_einsum": mt_logits_err,
+        "flash_attention_time": t["flash_attention_ranked"],
     }
     for m, prof in mt_prof.items():
         prof["device_busy_share"] = (prof["device_ms_per_call"]
@@ -1002,6 +1165,7 @@ def main() -> int:
     print(json.dumps(mt_line))
     print(json.dumps(z_line))
     print(json.dumps({"registry_sweep": sweep}))
+    print(json.dumps({"device_kernels_per_call": dev_kernels}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Flash attention (online softmax) for Hopper, sm_90a, on the CUDA cores.
+// Flash attention (online softmax) for Hopper, sm_90a, on the tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // kernel.py: _flash_kernel (launcher flash_attention_kernel).  Same
@@ -17,147 +17,269 @@
 // hd) layout through strides (no transposes); grouped-query attention
 // reads kv head h / (H / KV), so repeated kv heads are never built.
 //
-// What bounds it: operations.  Per (b, h) it does 4 S^2 hd f32 flops
-// against 4 S hd elements moved; at the serving shape (B, H, S, hd) =
-// (8, 12, 256, 64) that is 1.6 GFLOP against 25 MB, so the f32 rate of
-// the CUDA cores (67 TFLOP/s, no tensor cores: the products stay f32, as
-// in the reference) is the bound, not the 3.35 TB/s of memory.  The
-// design keeps every operand of the inner products on chip: one block
-// per (b, h, 64 query rows), four threads per query row, each holding a
-// quarter of the row's q and f32 accumulator in registers; 64-key tiles
-// of k and v staged in shared memory as f32 (read as broadcasts, no bank
-// conflicts; 2 x 64 x hd x 4 bytes, dynamic, 64 KB at hd = 128); the
-// four partial dot products joined by two shuffles.  A simple first
-// version: no tensor cores, no asynchronous copies.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// What bounds it: operations.  Per (b, h) it does 4 S^2 hd flops against
+// 4 S hd elements moved; at the text8 shape (B, S, H, hd) = (8, 256, 12,
+// 64) that is 1.61 GFLOP against 25.2 MB.  Both products run on the
+// tensor cores as mma.sync m16n8k8 TF32 with the 3xTF32 split (tf32.cuh),
+// which keeps f32 accuracy at a third of the TF32 rate: 1.61 GFLOP at
+// 495 / 3 TFLOP/s is 0.0098 ms, above the 0.0075 ms the bytes take at
+// 3.35 TB/s.  (Scalar f32 FMAs on the CUDA cores would be bound at 67
+// TFLOP/s, 0.024 ms.)
+//
+// Design: one block of 4 warps per (b, h, 64 query rows), each warp owning
+// 16 rows.  q stays in registers as f32 and is split per k-step.  64-key
+// tiles of k and v are double-buffered in shared memory by cp.async
+// (16-byte copies; bf16 is converted to f32 as it is staged), rows padded
+// to hd + 4 floats so that every fragment load is free of bank conflicts.
+// The online softmax runs on the accumulator fragments in registers, in
+// base 2 (scores times log2 e, then exp2); the row max joins a quad's 4
+// threads with two shuffles, and each thread
+// keeps a partial row sum that the quad joins once at the end.  P feeds
+// P v straight from its accumulator layout: within each 8-key step the
+// k index is permuted (k index t <-> key 2t, t + 4 <-> key 2t + 1), which
+// turns the C fragment of s into the A fragment of P with no shuffles, and
+// v's B fragment is read with the same permutation.  bf16 inputs are
+// exact in TF32, so q k^T takes one pass and P v two.
 #include <math.h>
+
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;        // query rows per block
-constexpr int kBlockK = 64;        // keys per shared-memory tile
-constexpr int kThreadsPerRow = 4;  // threads sharing one query row
-constexpr int kThreads = kBlockQ * kThreadsPerRow;
-constexpr float kNeg = -1e9f;      // additive mask, as in _mask_bias
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+constexpr int kWarps = 4;
+constexpr int kBlockQ = 16 * kWarps;  // query rows per block
+constexpr int kBlockK = 64;           // keys per shared-memory tile
+constexpr int kThreads = 32 * kWarps;
+constexpr float kNeg = -1e9f;         // additive mask, as in _mask_bias
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {  // element strides of the (B, S, heads) axes; hd is 1
   long long b, s, h;
 };
 
+template <int HD>
+constexpr int smem_bytes() {  // two buffers of a k tile and a v tile
+  return 2 * 2 * kBlockK * (HD + 4) * static_cast<int>(sizeof(float));
+}
+
+// One 64-key tile of k and v (keys k0 .. k0 + 63) into shared memory as
+// f32; keys past S are zeros.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void stage_tile(float* ks, float* vs,
+                                           const T* __restrict__ kb,
+                                           const T* __restrict__ vb,
+                                           long long kss, long long vss,
+                                           int k0, int S, int tid) {
+  constexpr int kPitch = HD + 4;
+  if constexpr (sizeof(T) == 4) {
+    constexpr int kRow = HD / 4;  // 16-byte chunks per row
+    for (int c = tid; c < kBlockK * kRow; c += kThreads) {
+      const int j = c / kRow, d = (c % kRow) * 4;
+      const bool ok = k0 + j < S;
+      const long long r = ok ? k0 + j : 0;
+      tc::cp_async16(ks + j * kPitch + d, kb + r * kss + d, ok);
+      tc::cp_async16(vs + j * kPitch + d, vb + r * vss + d, ok);
+    }
+  } else {
+    constexpr int kRow = HD / 8;  // 8 bf16 per 16-byte load
+    for (int c = tid; c < kBlockK * kRow; c += kThreads) {
+      const int j = c / kRow, d = (c % kRow) * 8;
+      uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
+      if (k0 + j < S) {
+        const long long r = k0 + j;
+        kr = *reinterpret_cast<const uint4*>(kb + r * kss + d);
+        vr = *reinterpret_cast<const uint4*>(vb + r * vss + d);
+      }
+      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kr);
+      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vr);
+      float kf[8], vf[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(k2[i]);
+        const float2 b = __bfloat1622float2(v2[i]);
+        kf[2 * i] = a.x;
+        kf[2 * i + 1] = a.y;
+        vf[2 * i] = b.x;
+        vf[2 * i + 1] = b.y;
+      }
+      float4* kd = reinterpret_cast<float4*>(ks + j * kPitch + d);
+      float4* vd = reinterpret_cast<float4*>(vs + j * kPitch + d);
+      kd[0] = make_float4(kf[0], kf[1], kf[2], kf[3]);
+      kd[1] = make_float4(kf[4], kf[5], kf[6], kf[7]);
+      vd[0] = make_float4(vf[0], vf[1], vf[2], vf[3]);
+      vd[1] = make_float4(vf[4], vf[5], vf[6], vf[7]);
+    }
+  }
+}
+
+// Up to hd 64 three blocks fit an SM's shared memory; asking for three
+// caps the registers at 168 a thread so that they fit as well.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int S,
                        int H, int KV, Strides qs, Strides ks_, Strides vs_,
                        Strides os, int causal, int window, float scale) {
-  constexpr int kCols = HD / kThreadsPerRow;  // columns per thread
-  extern __shared__ float smem[];  // k tile, then v tile: [kBlockK][HD]
-  float(*ks)[HD] = reinterpret_cast<float(*)[HD]>(smem);
-  float(*vs)[HD] = reinterpret_cast<float(*)[HD]>(smem + kBlockK * HD);
+  constexpr int kPitch = HD + 4;
+  constexpr int kTile = kBlockK * kPitch;  // floats of one k or v tile
+  constexpr int kD = HD / 8;               // k-steps of q k^T, n-tiles of P v
+  constexpr int kN = kBlockK / 8;          // n-tiles of q k^T, k-steps of P v
+  constexpr bool kF32 = sizeof(T) == 4;    // bf16 operands are exact in TF32
+  extern __shared__ __align__(16) float smem[];  // [2][k tile, v tile]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
-  const int part = tid % kThreadsPerRow;  // owns columns part + 4 i
-  const int qi = blockIdx.x * kBlockQ + tid / kThreadsPerRow;
-  const bool row_ok = qi < S;
-  const int qrow = row_ok ? qi : S - 1;  // ragged rows compute, never store
-
-  float qreg[kCols], acc[kCols];
-  const T* qp = q + b * qs.b + static_cast<long long>(qrow) * qs.s + h * qs.h;
-#pragma unroll
-  for (int i = 0; i < kCols; ++i) {
-    qreg[i] = to_float(qp[part + kThreadsPerRow * i]);
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // this thread's two query rows, g and g + 8 of its warp's 16
+  const int r0 = static_cast<int>(blockIdx.x) * kBlockQ + (tid / 32) * 16 + g;
+  const int row[2] = {r0, r0 + 8};
 
   const T* kb = k + b * ks_.b + kvh * ks_.h;
   const T* vb = v + b * vs_.b + kvh * vs_.h;
+  // scores in base 2 (times log2 e), so that exp2(s2 - m2) = exp(s - m)
+  const float scale2 = scale * kLog2e, neg2 = kNeg * kLog2e;
+  const int n_tiles = (S + kBlockK - 1) / kBlockK;
+  stage_tile<T, HD>(smem, smem + kTile, kb, vb, ks_.s, vs_.s, 0, S, tid);
+  tc::cp_async_commit();
 
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int e = tid; e < kBlockK * HD; e += kThreads) {
-      const int j = e / HD;
-      const int d = e % HD;
-      const int kj = k0 + j;
-      float kval = 0.f, vval = 0.f;
-      if (kj < S) {
-        kval = to_float(kb[static_cast<long long>(kj) * ks_.s + d]);
-        vval = to_float(vb[static_cast<long long>(kj) * vs_.s + d]);
+  // q as the A fragments of every k-step, f32 (rows past S are zeros)
+  float qf[kD][4];
+  {
+    const T* qb = q + b * qs.b + h * qs.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = row[r] < S;
+      const T* qp = qb + static_cast<long long>(ok ? row[r] : 0) * qs.s;
+#pragma unroll
+      for (int d = 0; d < kD; ++d) {
+        qf[d][r] = ok ? tc::to_float(qp[8 * d + t]) : 0.f;
+        qf[d][r + 2] = ok ? tc::to_float(qp[8 * d + t + 4]) : 0.f;
       }
-      ks[j][d] = kval;
-      vs[j][d] = vval;
     }
-    __syncthreads();
-
-    float s[kBlockK];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < kCols; ++i)
-        dot = fmaf(qreg[i], ks[j][part + kThreadsPerRow * i], dot);
-      // (p0 + p1) + (p2 + p3) in every one of the four threads: the
-      // same bits everywhere, so the row statistics agree.
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int kj = k0 + j;
-      float sj = -INFINITY;  // keys past S never enter the sum
-      if (kj < S) {
-        const int diff = qrow - kj;
-        bool ok = true;
-        if (causal) ok = diff >= 0;
-        if (window > 0) ok = ok && (causal ? diff < window : abs(diff) < window);
-        sj = dot * scale + (ok ? 0.f : kNeg);
-      }
-      s[j] = sj;
-      tile_max = fmaxf(tile_max, sj);
-    }
-    // Every tile holds at least one key < S, so m_new is finite and the
-    // first tile's alpha is exp(-inf) = 0.
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) acc[i] *= alpha;
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-#pragma unroll
-      for (int i = 0; i < kCols; ++i)
-        acc[i] = fmaf(p, vs[j][part + kThreadsPerRow * i], acc[i]);
-    }
-    l = l * alpha + psum;
-    m = m_new;
   }
 
-  if (row_ok) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* op = o + b * os.b + static_cast<long long>(qi) * os.s + h * os.h;
+  float acc[kD][4];
 #pragma unroll
-    for (int i = 0; i < kCols; ++i)
-      op[part + kThreadsPerRow * i] = from_float<T>(acc[i] / denom);
+  for (int d = 0; d < kD; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) {
+      float* nk = smem + ((tile + 1) & 1) * 2 * kTile;
+      stage_tile<T, HD>(nk, nk + kTile, kb, vb, ks_.s, vs_.s,
+                        (tile + 1) * kBlockK, S, tid);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const float* ks = smem + (tile & 1) * 2 * kTile;
+    const float* vs = ks + kTile;
+
+    // ---- s = q k^T for the 64 keys of the tile ----
+    float s[kN][4];
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      tc::Frag<4> a;
+      if constexpr (kF32) a.set(qf[d]); else a.set_exact(qf[d]);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float* kp = ks + (8 * n + g) * kPitch + 8 * d + t;
+        const float kv[2] = {kp[0], kp[4]};
+        tc::Frag<2> bf;
+        if constexpr (kF32) bf.set(kv); else bf.set_exact(kv);
+        tc::mma3<kF32, kF32>(s[n], a, bf);
+      }
+    }
+
+    // ---- mask, then the online softmax on the fragments ----
+    const int k0 = tile * kBlockK;
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const int kj = k0 + 8 * n + 2 * t + (e & 1);
+        float sv = -INFINITY;  // keys past S never enter the sum
+        if (kj < S) {
+          const int diff = row[r] - kj;
+          bool ok = true;
+          if (causal) ok = diff >= 0;
+          if (window > 0)
+            ok = ok && (causal ? diff < window : abs(diff) < window);
+          sv = s[n][e] * scale2 + (ok ? 0.f : neg2);
+        }
+        s[n][e] = sv;
+        tmax[r] = fmaxf(tmax[r], sv);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      // every tile holds a key < S, so the new max is finite and the
+      // first tile's alpha is exp(-inf) = 0
+      const float m_new = fmaxf(m[r], tmax[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+
+    // ---- acc += P v, 8 keys per k-step in the permuted order ----
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(s[n][e] - m[e / 2]);
+        l[e / 2] += p[e];
+      }
+      // C fragment (g,2t) (g,2t+1) (g+8,2t) (g+8,2t+1) as the A fragment
+      // (g,t) (g+8,t) (g,t+4) (g+8,t+4) under k index t <-> key 2t
+      const float pa[4] = {p[0], p[2], p[1], p[3]};
+      tc::Frag<4> a;
+      a.set(pa);
+      const float* vp = vs + (8 * n + 2 * t) * kPitch + g;
+#pragma unroll
+      for (int d = 0; d < kD; ++d) {
+        const float vv[2] = {vp[8 * d], vp[kPitch + 8 * d]};
+        tc::Frag<2> bf;
+        if constexpr (kF32) bf.set(vv); else bf.set_exact(vv);
+        tc::mma3<true, kF32>(acc[d], a, bf);
+      }
+    }
+    __syncthreads();  // the tile's buffer may be refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (row[r] >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    T* op = o + b * os.b + static_cast<long long>(row[r]) * os.s + h * os.h;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      op[8 * d + 2 * t] = tc::from_float<T>(acc[d][2 * r] / denom);
+      op[8 * d + 2 * t + 1] = tc::from_float<T>(acc[d][2 * r + 1] / denom);
+    }
   }
 }
 
@@ -167,7 +289,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
               Strides os, int causal, int window, float scale,
               cudaStream_t stream) {
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  constexpr int kSmem = 2 * kBlockK * HD * sizeof(float);
+  constexpr int kSmem = smem_bytes<HD>();
   if (kSmem > 48 * 1024) {  // above 48 KB only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<T, HD>,
@@ -203,7 +325,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
     case 64:
       return launch_hd<T, 64>(q, k, v, o, B, S, H, KV, qs, ks, vs, os, causal,
                               window, scale, st);
-    case 80:  // zamba2-2.7b: 2560 / 32 heads; 20 columns per thread
+    case 80:  // zamba2-2.7b: 2560 / 32 heads; 10 k-steps of 8
       return launch_hd<T, 80>(q, k, v, o, B, S, H, KV, qs, ks, vs, os, causal,
                               window, scale, st);
     case 128:
@@ -218,8 +340,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // C interface, bound with ctypes by repro_torch/kernels/flash_attention/
 // ops.py.  q, o: (B, S, H, hd); k, v: (B, S, KV, hd); strides in elements
-// for the first three axes, the last axis contiguous.  Returns the CUDA
-// error code of the launch (0 on success).
+// for the first three axes, the last axis contiguous; k and v 16-byte
+// aligned with strides that keep every row so (the wrapper checks).
+// Returns the CUDA error code of the launch (0 on success).
 #define FLASH_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
                       int B, int S, int H, int KV, int hd, long long qsb,    \

@@ -1,12 +1,12 @@
 """Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` (Hopper) at first
-use into one shared library with a plain C interface, which is loaded
-with ``ctypes``.  The library goes to ``build/`` at the root of the
-checkout, named by a hash of the sources and flags, so a changed source
-is rebuilt and an unchanged one is loaded as it is.  Each source is its
-own ``nvcc -c`` process, all started together, and the objects are
-linked once.
+The sources (and the headers beside them, ``*.cuh``) are compiled with
+``nvcc`` for ``sm_90a`` (Hopper) at first use into one shared library
+with a plain C interface, which is loaded with ``ctypes``.  The library
+goes to ``build/`` at the root of the checkout, named by a hash of the
+sources and flags, so a changed source is rebuilt and an unchanged one
+is loaded as it is.  Each source is its own ``nvcc -c`` process, all
+started together, and the objects are linked once.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.  The
 build runs only when a kernel is launched on a CUDA tensor; importing
@@ -25,6 +25,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
@@ -39,7 +41,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _DNDM = [_P] * 6 + [_LL, _I, _I, _I, _F, _P]
 _FLASH = [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_I, _I, _F, _P]
 _SCORES = [_P] * 5 + [_LL, _I, _F, _P]
-_SSD = [_P] * 6 + [_I] * 6 + [_LL] * 13 + [_P]
+_SSD = [_P] * 9 + [_I] * 6 + [_LL] * 13 + [_P]
 ARGTYPES = {
     # logits, gumbel, mask, x, tau, out, rows, K, t, version,
     # temperature, stream
@@ -52,7 +54,8 @@ ARGTYPES = {
     # logits, gumbel, mask, tok, score, rows, K, temperature, stream
     "decode_scores_f32": _SCORES,
     "decode_scores_bf16": _SCORES,
-    # x, dt, A, Bm, Cm, y, B, S, H, P, N, L, 13 strides, stream
+    # x, dt, A, Bm, Cm, y, states, cs_last, cb, B, S, H, P, N, L,
+    # 13 strides, stream
     "ssd_scan_f32": _SSD,
     "ssd_scan_bf16": _SSD,
 }
@@ -86,8 +89,9 @@ def sources() -> list[Path]:
 
 
 def _digest(srcs: list[Path]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -152,3 +156,19 @@ def check(rc: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+
+
+def launch(kernel: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn`` with ``args`` and, last, the raw
+    handle of ``device``'s current stream, with ``device`` the current
+    CUDA device during the call; raise if it returns a CUDA error.  The
+    raw handle and a device check cost the host less than entering
+    ``torch.cuda.device`` and building a ``torch.cuda.Stream`` for every
+    launch, and the wrappers' host time paces the small kernels."""
+    current = torch.cuda.current_device()
+    if device.index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    check(rc, kernel)

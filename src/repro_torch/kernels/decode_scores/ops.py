@@ -57,13 +57,10 @@ def decode_scores(logits, *, mask=None, gumbel=None,
     B, N, _ = logits.shape
     tok = torch.empty((B, N), dtype=torch.int32, device=logits.device)
     score = torch.empty((B, N), dtype=torch.float32, device=logits.device)
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        rc = fn(logits.data_ptr(),
-                gumbel.data_ptr() if gumbel is not None else None,
-                mask.data_ptr(), tok.data_ptr(), score.data_ptr(), B * N, K,
-                float(temperature), stream)
-    build.check(rc, "decode_scores")
+    build.launch("decode_scores", fn, logits.device, logits.data_ptr(),
+                 gumbel.data_ptr() if gumbel is not None else None,
+                 mask.data_ptr(), tok.data_ptr(), score.data_ptr(), B * N, K,
+                 float(temperature))
     decode_scores.launches += 1
     return tok, score
 

@@ -63,14 +63,11 @@ def dndm_update(logits, x, tau, t: int, *, mask=None, gumbel=None,
           else lib.dndm_update_bf16)
     B, N, _ = logits.shape
     out = torch.empty((B, N), dtype=torch.int32, device=logits.device)
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        rc = fn(logits.data_ptr(),
-                gumbel.data_ptr() if gumbel is not None else None,
-                mask.data_ptr(), x.data_ptr(), tau.data_ptr(),
-                out.data_ptr(), B * N, K, int(t), version,
-                float(temperature), stream)
-    build.check(rc, "dndm_update")
+    build.launch("dndm_update", fn, logits.device, logits.data_ptr(),
+                 gumbel.data_ptr() if gumbel is not None else None,
+                 mask.data_ptr(), x.data_ptr(), tau.data_ptr(),
+                 out.data_ptr(), B * N, K, int(t), version,
+                 float(temperature))
     dndm_update.launches += 1
     return out
 

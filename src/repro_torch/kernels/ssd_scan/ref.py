@@ -7,7 +7,10 @@
 included: with bf16 inputs, ``C Bᵀ`` is a bf16 product and everything it
 meets afterwards is f32, as in JAX.  ``ssd_sequential`` is the exact
 step-by-step recurrence (``repro/kernels/ssd_scan/ref.py``), the ground
-truth both the chunked form and the kernel must match.
+truth both the chunked form and the kernel must match.  ``chunk_states``
+and ``chunk_cb`` (pass 1), ``carry_states`` (pass 2) and ``chunk_output``
+(pass 3) are the plain versions of the kernel's passes, in f32 as the
+kernel computes them; ``ssd_passes`` composes them.
 
 Shapes: x (B,S,H,P); dtv (B,S,H); A (H,) f32, negative; Bm, Cm (B,S,N),
 shared across heads.  Both return (y (B,S,H,P) in x's dtype, final state
@@ -93,3 +96,81 @@ def ssd_sequential(x, dtv, A, Bm, Cm):
         state = state * dec[..., None, None] + upd
         ys.append(torch.einsum("bn,bhnp->bhp", Cm[:, t], state))
     return torch.stack(ys, dim=1), state
+
+
+def _chunked(L: int, *arrays):
+    """Each array from (B, S, ...) to (B, nc, L, ...) in f32, zeros past
+    S."""
+    S = arrays[0].shape[1]
+    pad = -(-S // L) * L - S
+    out = []
+    for a in arrays:
+        a = a.float()
+        if pad:
+            a = F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        out.append(a.reshape(a.shape[0], -1, L, *a.shape[2:]))
+    return out
+
+
+def chunk_states(x, dtv, A, Bm, chunk: int):
+    """Pass 1: each chunk's own state contribution s_c = Σ_j exp(cs_L -
+    cs_j) dt_j B_j x_jᵀ and its cs_L, for every chunk but the last:
+    (B, nc-1, H, N, P) and (B, nc-1, H), f32."""
+    L = min(chunk, x.shape[1])
+    xc, dtc, Bc = _chunked(L, x, dtv, Bm)
+    cs = torch.cumsum(dtc * A, dim=2)                  # (B,nc,L,H)
+    w = torch.exp(cs[:, :, -1:] - cs) * dtc
+    s = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, w, xc)
+    return s[:, :-1], cs[:, :-1, -1]
+
+
+def chunk_cb(Bm, Cm, chunk: int):
+    """Pass 1, its other part: each chunk's C Bᵀ, (B, nc, L, L) f32, zeros
+    past S; shared by the heads."""
+    L = min(chunk, Bm.shape[1])
+    Bc, Cc = _chunked(L, Bm, Cm)
+    return torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+
+
+def carry_states(states, cs_last):
+    """Pass 2: the states entering chunks 1 .. nc-1, S_1 = s_0 and
+    S_c+1 = exp(cs_L(c)) S_c + s_c, in the layout of ``states``."""
+    if not states.shape[1]:
+        return states
+    run, out = states[:, 0], [states[:, 0]]
+    for c in range(1, states.shape[1]):
+        run = run * torch.exp(cs_last[:, c])[..., None, None] + states[:, c]
+        out.append(run)
+    return torch.stack(out, dim=1)
+
+
+def chunk_output(x, dtv, A, Cm, cb, entering, chunk: int):
+    """Pass 3: y = (C Bᵀ ∘ exp(cs_i - cs_j) ∘ dt_j) x over j <= i, plus
+    (exp(cs) C) S_c for chunks c >= 1, with C Bᵀ = cb and S_c =
+    entering[:, c - 1]."""
+    Bb, S, H, P = x.shape
+    L = min(chunk, S)
+    xc, dtc, Cc = _chunked(L, x, dtv, Cm)
+    cs = torch.cumsum(dtc * A, dim=2)                  # (B,nc,L,H)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    gap = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (B,nc,L,L,H)
+    dec = torch.where(tri[None, None, :, :, None], torch.exp(gap),
+                      torch.zeros((), device=x.device))
+    M = cb[..., None] * dec * dtc[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", M, xc)
+    if entering.shape[1]:
+        ce = Cc[:, 1:, :, None, :] * torch.exp(cs[:, 1:])[..., None]
+        y[:, 1:] += torch.einsum("bcihn,bchnp->bcihp", ce, entering)
+    return y.reshape(Bb, -1, H, P)[:, :S].to(x.dtype)
+
+
+def ssd_passes(x, dtv, A, Bm, Cm, chunk: int):
+    """The kernel's three passes composed: y (B,S,H,P) in x's dtype, as
+    ``ssd_chunked``'s first output, with what the passes hand on (the
+    entering states, cs_L, C Bᵀ), as ``ops.ssd_scan_passes`` returns
+    them."""
+    states, cs_last = chunk_states(x, dtv, A, Bm, chunk)
+    cb = chunk_cb(Bm, Cm, chunk)
+    entering = carry_states(states, cs_last)
+    return (chunk_output(x, dtv, A, Cm, cb, entering, chunk), entering,
+            cs_last, cb)

@@ -52,7 +52,9 @@ def test_dndm_update_kernel_is_bitwise_plain(gen, B, N, K, dtype):
 @pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
     (8, 256, 12, 12, 64, False, 0), (8, 256, 12, 4, 64, True, 0),
     (2, 37, 2, 2, 16, False, 0), (2, 100, 4, 2, 128, False, 16),
-    (4, 256, 32, 32, 80, False, 0), (2, 77, 4, 4, 80, False, 0)])
+    (4, 256, 32, 32, 80, False, 0), (2, 77, 4, 4, 80, False, 0),
+    # the ranked path: 128 target tokens after a 48-64-token prefix
+    (8, 184, 8, 8, 64, False, 0), (8, 179, 8, 8, 64, False, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(gen, B, S, H, KV, hd, causal,
                                               window, dtype):
@@ -63,6 +65,30 @@ def test_flash_attention_kernel_matches_plain(gen, B, S, H, KV, hd, causal,
     want = k2_ref.attention(q, k, v, causal=causal, window=window)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _misaligned(shape, dtype):
+    """A view of ``shape`` that starts one element past a 16-byte
+    boundary."""
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.randn(n + 1, device="cuda").to(dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rejects_misaligned_kv(gen, dtype):
+    """The kernel stages k and v by 16-byte copies: a view whose rows do
+    not start on 16-byte boundaries raises, and nothing is launched."""
+    q = torch.randn(2, 64, 4, 64, generator=gen, device="cuda").to(dtype)
+    k = _misaligned((2, 64, 4, 64), dtype)
+    v = torch.randn(2, 64, 4, 64, generator=gen, device="cuda").to(dtype)
+    before = k2_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        k2_ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        k2_ops.flash_attention(q, v, k)
+    assert k2_ops.flash_attention.launches == before
 
 
 @pytest.mark.parametrize("B,N,K", [(3, 40, 28), (3, 40, 32), (3, 40, 33),
@@ -108,3 +134,50 @@ def test_ssd_scan_kernel_matches_plain(gen, B, S, H, P, N, chunk, dtype):
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     tol = 3e-5 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 48, 3, 8, 16, 16), (2, 33, 2, 8, 8, 16), (1, 64, 2, 16, 8, 32),
+    (4, 256, 80, 64, 64, 128), (2, 200, 8, 64, 64, 128)])
+def test_ssd_scan_passes_match_their_plain_versions(gen, B, S, H, P, N,
+                                                    chunk):
+    """What each of the kernel's passes leaves in its scratch holds
+    against the plain pass in ref.py, f32: the states entering chunks
+    1 .. nc-1 (passes 1 and 2; three chunks and more run the carry), cs_L
+    and C Bᵀ on and below the diagonal; y against their composition."""
+    x = torch.randn(B, S, H, P, generator=gen, device="cuda") * 0.5
+    dtv = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn(H, generator=gen, device="cuda") * 0.3)
+    Bm = torch.randn(B, S, N, generator=gen, device="cuda") * 0.3
+    Cm = torch.randn(B, S, N, generator=gen, device="cuda") * 0.3
+    before = k4_ops.ssd_scan.launches
+    got = k4_ops.ssd_scan_passes(x, dtv, A, Bm, Cm, chunk=chunk)
+    assert k4_ops.ssd_scan.launches == before + 1
+    want = k4_ref.ssd_passes(x, dtv, A, Bm, Cm, chunk)
+    y, entering, cs_last, cb = got
+    torch.testing.assert_close(y, want[0], atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(entering, want[1], atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(cs_last, want[2], atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(torch.tril(cb), torch.tril(want[3]),
+                               atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("which", ["x", "Bm", "Cm"])
+def test_ssd_scan_rejects_misaligned_f32_views(gen, which):
+    """In f32 the kernel stages x, Bm and Cm by 16-byte copies: a view
+    whose rows do not start on 16-byte boundaries raises, and nothing is
+    launched."""
+    B, S, H, P, N = 2, 48, 3, 8, 16
+    args = dict(
+        x=torch.randn(B, S, H, P, generator=gen, device="cuda") * 0.5,
+        dtv=torch.nn.functional.softplus(
+            torch.randn(B, S, H, generator=gen, device="cuda")),
+        A=-torch.exp(torch.randn(H, generator=gen, device="cuda") * 0.3),
+        Bm=torch.randn(B, S, N, generator=gen, device="cuda") * 0.3,
+        Cm=torch.randn(B, S, N, generator=gen, device="cuda") * 0.3)
+    args[which] = _misaligned(tuple(args[which].shape), torch.float32)
+    before = k4_ops.ssd_scan.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        k4_ops.ssd_scan(*args.values(), chunk=16)
+    assert k4_ops.ssd_scan.launches == before

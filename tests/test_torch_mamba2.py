@@ -108,6 +108,50 @@ def test_ssd_chunked_matches_sequential(chunk):
                                    atol=STATE_TOL, rtol=STATE_TOL)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SWEEP)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ssd_kernel_passes_compose_to_the_jax_oracles(B, S, H, P, N, chunk,
+                                                      dtype):
+    """The plain versions of the CUDA kernel's three passes (chunk
+    states and each chunk's C Bᵀ, the carry across chunks, the output),
+    composed, hold against the JAX package's chunked oracle and its exact
+    recurrence at the sweep's bars; on the CPU ``ssd_scan_passes`` hands
+    them back in the kernel scratch's shapes."""
+    j, t = _both(_ssd_inputs(B, S, H, P, N, seed=B * S + H * P + N + 1),
+                 dtype)
+    got, entering, cs_last, cb = t_ssd.ssd_scan_passes(*t, chunk=chunk)
+    assert got.dtype == t[0].dtype and got.shape == (B, S, H, P)
+    L = min(chunk, S)
+    nc = -(-S // L)
+    assert entering.shape == (B, nc - 1, H, N, P)
+    assert cs_last.shape == (B, nc - 1, H) and cb.shape == (B, nc, L, L)
+    y_chunk, _ = j_mamba2._ssd_scan_ref(*j, chunk)
+    y_seq, _ = j_ssd_ref.ssd_sequential_ref(*j)
+    for want in (y_chunk, y_seq):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=Y_TOL[dtype],
+                                   rtol=Y_TOL[dtype])
+
+
+@pytest.mark.parametrize("chunk", [5, 8, 16, 40])
+def test_ssd_carried_states_are_the_recurrence_at_chunk_starts(chunk):
+    """Passes 1 and 2 give the state entering each chunk c >= 1: the exact
+    recurrence's state after the first c L positions (three and more
+    chunks exercise the carry)."""
+    _, t = _both(_ssd_inputs(2, 40, 2, 8, 16, seed=9), "f32")
+    x, dtv, A, Bm, Cm = t
+    states, cs_last = t_ssd_ref.chunk_states(x, dtv, A, Bm, chunk)
+    nc = -(-40 // chunk)
+    assert states.shape == (2, nc - 1, 2, 16, 8)
+    assert cs_last.shape == (2, nc - 1, 2)
+    entering = t_ssd_ref.carry_states(states, cs_last)
+    for c in range(1, nc):
+        n = c * chunk
+        _, want = t_ssd_ref.ssd_sequential(x[:, :n], dtv[:, :n], A,
+                                           Bm[:, :n], Cm[:, :n])
+        np.testing.assert_allclose(entering[:, c - 1].numpy(), want.numpy(),
+                                   atol=STATE_TOL, rtol=STATE_TOL)
+
+
 def test_ssd_scan_cpu_path_counts_no_launch_and_rejects_bad_input():
     _, t = _both(_ssd_inputs(2, 48, 3, 8, 16, seed=1), "f32")
     x, dtv, A, Bm, Cm = t
