@@ -8,17 +8,22 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
      sm_90a (at first use, into ``build/``);
-  3. dndm_update kernel vs its plain version: tokens bitwise equal;
+  3. dndm_update kernel vs its plain version: tokens bitwise equal, at
+     the K of the paths (28, 32000), GPT-2's odd 50257 (no row 16-byte
+     aligned), K on both sides of the regime threshold (row_select.cuh's
+     kBlockMinK) and the small shapes of tests/test_torch_kernels.py;
   4. flash_attention kernel vs its plain version: f32 within atol/rtol
      1e-4 (the sums run in another order, the products as 3xTF32 on the
      tensor cores), bf16 within 2e-2 (one bf16 rounding of the output, as
      tests/test_kernels.py allows); the ranked path's prefixed lengths
      (S = 179, 184) included;
   5. decode_scores kernel vs its plain version, K in {28, 32, 33, 100,
-     257, 1000} and the ranked path's (8, 128, 28), f32 and bf16, with
-     and without Gumbel noise, temperature 1 and 0.7, mask -1e9 at the
-     last id: tokens bitwise equal, scores within atol/rtol 1e-5 (the
-     kernel's online logsumexp sums in another order);
+     257, 1000}, the ranked path's (8, 128, 28) and the wide shapes of 3
+     ((4, 256, 32000), (2, 16, 50257), the threshold - 1, at it, + 1),
+     f32 and bf16, with and without Gumbel noise, temperature 1 and 0.7,
+     mask -1e9 at the last id: tokens bitwise equal, scores within
+     atol/rtol 1e-5 (the kernel's online logsumexp sums in another
+     order);
   5b. ssd_scan kernel vs its plain version (ref.ssd_chunked): the four
      shapes of tests/test_kernels.py::test_ssd_scan_sweep (ragged S = 33
      included) in f32 and bf16 at that test's bars (3e-5 f32, 5e-2
@@ -26,8 +31,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      80, 64, 64, 128) and a ragged S = 200 in f32, where y is also held
      against the exact recurrence ref.ssd_sequential (bar SSD_FULL_TOL);
   5c. by torch.profiler, the CUDA kernels of one ssd_scan call (its
-     passes) and of PyTorch's f32 scaled_dot_product_attention (the
-     yardstick's backend), with their device time;
+     passes), of PyTorch's f32 scaled_dot_product_attention (the
+     yardstick's backend) and of one Gumbel slab at the zamba2 path's
+     (4, 256, 32000), with their device time;
   6. the main path: dndm-text8 at full width (12 layers, d_model 768,
      12 heads, d_ff 3072, vocab 28), random weights from seed 0,
      attn_impl="pallas", f32; a GenerationEngine (method "dndm",
@@ -75,10 +81,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      tensor-core bound, their flops at a third of the TF32 rate), the
      plain versions and, for attention, scaled_dot_product_attention (a
      yardstick only; the port never calls it), flash_attention also at
-     the ranked path's shape (8, 184, 8, 64).  Two readings: ``ms``
-     launch-paced, the host enqueueing while the device runs (what a
-     path pays per call), and ``device_ms`` with each timed run queued
-     behind a busy-wait kernel (the kernels' own time);
+     the ranked path's shape (8, 184, 8, 64), decode_scores also at
+     (4, 256, 32000).  Two readings: ``ms`` launch-paced, the host
+     enqueueing while the device runs (what a path pays per call), and
+     ``device_ms`` with each timed run queued behind a busy-wait kernel
+     (the kernels' own time), with ``host_ms`` the host's time per call
+     and, for the decode kernels at K = 28, ``launch_floor_host_ms``: a
+     bare allocation and a direct ctypes call of the C entry point;
  10. one more sampler run of each path's batch shape (dndm on
      dndm-text8; dndm_topk and dndm_c_topk on dndm-mt with a 56-token
      prefix) under torch.profiler: device kernel time and kernel launches
@@ -88,6 +97,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 The last lines are JSON: the main path, the kernels, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
+
+    python3 chip_smoke.py --measure-decode [--parent DIR]
+
+measures the decode kernels only: the host time of each piece of a
+wrapper call at K = 28, the device time of both regimes of both kernels
+over K (the sweep that sets kBlockMinK), the block regime's aligned-noise
+instantiation beside its shifted one on aligned noise and, with
+``--parent DIR`` (an unpacked ``git archive`` of an earlier commit), that
+commit's kernel wrappers, loaded into the same process, beside these in
+alternating pairs.
 """
 from __future__ import annotations
 
@@ -102,7 +121,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.configs as configs_lib  # noqa: E402
 from repro_torch.core.decode import gumbel_noise  # noqa: E402
@@ -130,8 +150,16 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 
+# K from which the decode kernels give a row a block (row_select.cuh)
+ROW_SELECT = ROOT / "src" / "repro_torch" / "csrc" / "row_select.cuh"
+BLOCK_MIN_K_RE = r"constexpr int kBlockMinK = (\d+);"
+BLOCK_MIN_K = int(re.search(BLOCK_MIN_K_RE, ROW_SELECT.read_text()).group(1))
+# the zamba2 path's vocabulary, GPT-2's odd one (no row 16-byte aligned)
+# and K on both sides of the regime threshold
+DECODE_WIDE = [(4, 256, 32000), (2, 16, 50257), (2, 64, BLOCK_MIN_K - 1),
+               (2, 64, BLOCK_MIN_K), (2, 64, BLOCK_MIN_K + 1)]
 K1_SHAPES = [(1, 16, 32), (3, 40, 100), (2, 64, 257), (1, 7, 1000),
-             (8, 256, 28), (4, 256, 32000)]
+             (8, 256, 28)] + DECODE_WIDE
 # (B, S, H, KV, hd, causal, window)
 K2_CASES = ([(B, S, H, H, hd, c, 0)
              for (B, S, H, hd) in [(1, 32, 2, 16), (2, 64, 4, 32),
@@ -150,7 +178,8 @@ K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 MAIN_REQUESTS, MAIN_LEN, MAIN_BATCH, MAIN_T = 16, 256, 8, 1000
 
-K3_SHAPES = [(3, 40, K) for K in (28, 32, 33, 100, 257, 1000)] + [(8, 128, 28)]
+K3_SHAPES = ([(3, 40, K) for K in (28, 32, 33, 100, 257, 1000)]
+             + [(8, 128, 28)] + DECODE_WIDE)
 K3_TOL = 1e-5
 
 # the ranked path: (method, requests) in submission order
@@ -194,15 +223,20 @@ def ptxas_summary(log: str) -> list[str]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"(dndm_update_kernel|flash_attention_kernel"
-                             r"|decode_scores_kernel|ssd_state_kernel"
+            base = re.search(r"(dndm_update_(?:warp|block)_kernel"
+                             r"|decode_scores_(?:warp|block)_kernel"
+                             r"|flash_attention_kernel|ssd_state_kernel"
                              r"|ssd_carry_kernel|ssd_output_kernel)",
                              mangled)
             dtype = ("bf16" if "bfloat16" in mangled else
-                     "f32" if re.search(r"I(f|fLi\d+E)E", mangled) else "")
-            hd = re.search(r"Li(\d+)EE", mangled)
-            args = ", ".join(a for a in (dtype, f"hd={hd.group(1)}" if hd
-                                         else "") if a)
+                     "f32" if re.search(r"I(f|fL[ib]\d+E)E", mangled)
+                     else "")
+            # the block decode kernels' bool template argument (1: Gumbel
+            # noise given), else flash's int one, the head dim
+            arg = re.search(r"L[ib](\d+)EE", mangled)
+            what = "noise" if base and "block" in base.group(1) else "hd"
+            args = ", ".join(a for a in (dtype, f"{what}={arg.group(1)}"
+                                         if arg else "") if a)
             name = (f"{base.group(1) if base else mangled}"
                     f"{f'<{args}>' if args else ''}")
         elif "spill stores" in line:
@@ -778,10 +812,12 @@ def device_kernels(fn, calls: int = 5) -> list[dict]:
 
 def device_kernel_lists(g) -> dict:
     """The CUDA kernels of one ssd_scan call at the zamba2 shape (the
-    wrapper launches the kernel's passes) and of PyTorch's f32
+    wrapper launches the kernel's passes), of PyTorch's f32
     scaled_dot_product_attention at the text8 shape (the yardstick's
-    backend).  Run before the paths' profiled runs: after them this
-    process's profiler reported no device events."""
+    backend) and of one Gumbel slab at the zamba2 path's (4, 256, 32000)
+    (core/decode.py's gumbel_noise, drawn once per network call).  Run
+    before the paths' profiled runs: after them this process's profiler
+    reported no device events."""
     B, S, H, P, N, L = K4_FULL[0]
     ins = ssd_inputs(g, B, S, H, P, N, torch.float32)
     q, k, v = (torch.randn(MAIN_BATCH, 12, MAIN_LEN, 64, generator=g,
@@ -789,7 +825,9 @@ def device_kernel_lists(g) -> dict:
     return {"ssd_scan": device_kernels(
                 lambda: k4_ops.ssd_scan(*ins, chunk=L)),
             "scaled_dot_product_attention": device_kernels(
-                lambda: F.scaled_dot_product_attention(q, k, v))}
+                lambda: F.scaled_dot_product_attention(q, k, v)),
+            "gumbel_noise": device_kernels(
+                lambda: gumbel_noise(g, (B, S, 32000), "cuda"))}
 
 
 def ssd_flops(B, S, H, P, N, L) -> int:
@@ -806,7 +844,8 @@ def ssd_flops(B, S, H, P, N, L) -> int:
 def measure_zamba(g) -> dict:
     """Kernel, plain and library times at the zamba2 path's shapes:
     ssd_scan at (4, 256, 80, 64, 64, 128), flash_attention at (4, 256, 32,
-    80), dndm_update at (4, 256, 32000); all f32.  ``ms``, ``plain_ms`` and
+    80), dndm_update and decode_scores at (4, 256, 32000) with Gumbel
+    noise, and the drawing of that noise; all f32.  ``ms``, ``plain_ms`` and
     ``library_ms`` launch-paced (``time_ms``) in the order plain, kernel
     (library), kernel (library), plain; ``device_ms`` and
     ``library_device_ms`` by ``device_time_ms``, kernel and library
@@ -866,7 +905,66 @@ def measure_zamba(g) -> dict:
         "plain_ms": statistics.median([p5, p6]),
         **bound(B * S * K * 8 + K * 4 + B * S * 12, B * S * K * 3),
         "library_ms": None}
+
+    # decode_scores at the same shape and noise (no path runs it there
+    # yet: the ranked samplers on a 32000-entry vocabulary would)
+    kw3 = dict(mask=mask, gumbel=noise, temperature=1.0)
+    k3 = lambda: k3_ops.decode_scores(logits, **kw3)  # noqa: E731
+    k3p = lambda: k3_ref.decode_scores(logits, **kw3)  # noqa: E731
+    p7, m7, m8, p8 = (time_ms(f, 50) for f in (k3p, k3, k3, k3p))
+    d7, d8 = (device_time_ms(k3, 50) for _ in range(2))
+    out["decode_scores"] = {
+        "shape": [B, S, K], "ms": statistics.median([m7, m8]),
+        **device_fields(d7, d8),
+        "plain_ms": statistics.median([p7, p8]),
+        # logits + gumbel + mask read, tokens and scores written; per
+        # element + mask, + gumbel, compare, exp and the online sum
+        **bound(B * S * K * 8 + K * 4 + B * S * 8, B * S * K * 6),
+        "library_ms": None}
+
+    # the Gumbel slab the zamba2 path draws per call: rand, clamp_, log,
+    # neg, log, neg, each a PyTorch kernel over (B, S, K) f32 (written by
+    # rand, read and written by the other five)
+    gum = lambda: gumbel_noise(g, (B, S, K), "cuda")  # noqa: E731
+    out["gumbel_noise"] = {
+        "shape": [B, S, K], "ms": time_ms(gum, 20),
+        **device_fields(*(device_time_ms(gum, 20) for _ in range(2))),
+        **bound(B * S * K * 4 * 11, 0)}
     return out
+
+
+def launch_floor(name: str, logits, mask, gumbel, x=None, tau=None,
+                 t: int = 0):
+    """The floor under a decode wrapper's host time: a bare allocation of
+    its output, as the wrapper makes it, and a direct ctypes call of its C
+    entry point with arguments computed once (f32, version 1, temperature
+    1).  Returns that call, for ``device_time_ms``."""
+    fn = getattr(build.library().lib, f"{name}_f32")
+    stream = torch.cuda.current_stream().cuda_stream
+    B, N, K = logits.shape
+    if name == "dndm_update":
+        out = torch.empty_like(x)
+        args = (logits.data_ptr(), gumbel.data_ptr(), mask.data_ptr(),
+                x.data_ptr(), tau.data_ptr(), out.data_ptr(), B * N, K, t,
+                1, 1.0, stream)
+
+        def alloc():
+            return torch.empty_like(x)
+    else:
+        tok = logits.new_empty((B, N), dtype=torch.int32)
+        score = torch.empty_like(tok, dtype=torch.float32)
+        args = (logits.data_ptr(), gumbel.data_ptr(), mask.data_ptr(),
+                tok.data_ptr(), score.data_ptr(), B * N, K, 1.0, stream)
+
+        def alloc():
+            t = logits.new_empty((B, N), dtype=torch.int32)
+            return t, torch.empty_like(t, dtype=torch.float32)
+    build.check(fn(*args), name)
+
+    def call():
+        alloc()
+        fn(*args)
+    return call
 
 
 def measure(g) -> dict:
@@ -893,6 +991,8 @@ def measure(g) -> dict:
     m2 = time_ms(k1, 200)
     p2 = time_ms(k1p, 200)
     d1, d2 = (device_time_ms(k1, 200) for _ in range(2))
+    f1 = launch_floor("dndm_update", logits, mask, noise, x, tau, t)
+    floor1 = statistics.median(device_time_ms(f1, 200)[1] for _ in range(2))
 
     H, hd = 12, 64
     q = torch.randn(B, N, H, hd, generator=g, device="cuda")
@@ -945,10 +1045,12 @@ def measure(g) -> dict:
     m6 = time_ms(k3, 200)
     p6 = time_ms(k3p, 200)
     d5, d6 = (device_time_ms(k3, 200) for _ in range(2))
+    f3 = launch_floor("decode_scores", logits3, mask, noise3)
+    floor3 = statistics.median(device_time_ms(f3, 200)[1] for _ in range(2))
     return {
         "dndm_update": {
             "ms": statistics.median([m1, m2]),
-            **device_fields(d1, d2),
+            **device_fields(d1, d2), "launch_floor_host_ms": floor1,
             "plain_ms": statistics.median([p1, p2]),
             **bound(k1_bytes, k1_ops_n), "library_ms": None},
         "flash_attention": {
@@ -968,16 +1070,355 @@ def measure(g) -> dict:
             "library_device_ms": statistics.median([dlr1[0], dlr2[0]])},
         "decode_scores": {
             "ms": statistics.median([m5, m6]),
-            **device_fields(d5, d6),
+            **device_fields(d5, d6), "launch_floor_host_ms": floor3,
             "plain_ms": statistics.median([p5, p6]),
             **bound(k3_bytes, k3_ops_n), "library_ms": None},
     }
+
+
+# ---------------------------------------------------------------------
+# The decode kernels' measurements (--measure-decode [--parent DIR]).
+
+def decode_inputs(g, B: int, N: int, K: int) -> dict:
+    """f32 logits, the -1e9 mask at the last id, Gumbel noise, and x, tau,
+    t as the text8 path gives them."""
+    mask = torch.zeros(K, device="cuda")
+    mask[K - 1] = -1e9
+    tau = torch.randint(1, MAIN_T + 1, (1, N), generator=g, device="cuda",
+                        dtype=torch.int32).expand(B, N).contiguous()
+    return {"logits": torch.randn(B, N, K, generator=g, device="cuda"),
+            "mask": mask, "gumbel": gumbel_noise(g, (B, N, K), "cuda"),
+            "x": torch.full((B, N), K - 1, dtype=torch.int32, device="cuda"),
+            "tau": tau, "t": int(tau[0, 0])}
+
+
+def decode_call(fn, name: str, d: dict):
+    """One call of the decode wrapper ``fn`` (``name``'s), f32 with Gumbel
+    noise."""
+    if name == "dndm_update":
+        return lambda: fn(d["logits"], d["x"], d["tau"], d["t"],
+                          mask=d["mask"], gumbel=d["gumbel"], version=1,
+                          temperature=1.0)
+    return lambda: fn(d["logits"], mask=d["mask"],
+                      gumbel=d["gumbel"], temperature=1.0)
+
+
+DECODE_TIMED = (("dndm_update", (8, 256, 28)),
+                ("dndm_update", (4, 256, 32000)),
+                ("decode_scores", (8, 128, 28)),
+                ("decode_scores", (4, 256, 32000)))
+PAIRS = 10
+
+
+def tree_wrappers(tree: Path) -> dict:
+    """The four kernel wrappers of the checkout ``tree`` (an unpacked
+    ``git archive`` of another commit), loaded into this process beside
+    this checkout's: that tree's ``kernels/build.py``, which builds its
+    CUDA sources into its own build/, and its four ``ops.py``, each bound
+    to that build module while it loads (their ``ref`` imports resolve to
+    this checkout's, which serve CPU tensors only)."""
+    import importlib.util
+    import repro_torch.kernels as kernels_pkg
+    src = tree / "src" / "repro_torch" / "kernels"
+
+    def load(name: str, path: Path):
+        spec = importlib.util.spec_from_file_location(f"tree_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod  # dataclasses look their module up
+        spec.loader.exec_module(mod)
+        return mod
+
+    kernels_pkg.build = load("build", src / "build.py")
+    try:
+        return {k: getattr(load(k, src / k / "ops.py"), k)
+                for k in ("dndm_update", "flash_attention", "decode_scores",
+                          "ssd_scan")}
+    finally:
+        kernels_pkg.build = build
+
+
+def paired_times(fns: dict, iters: int) -> dict:
+    """``ms``, ``device_ms`` and ``host_ms`` of the calls ``fns["parent"]``
+    and ``fns["change"]`` in PAIRS pairs, the parent first in every other
+    pair: each side's medians and host readings, and the number of pairs
+    in which the change's host time, and its device time, was the
+    lower."""
+    r = {k: {"ms": [], "device_ms": [], "host_ms": []} for k in fns}
+    for i in range(PAIRS):
+        for k in ("parent", "change")[::1 if i % 2 == 0 else -1]:
+            r[k]["ms"].append(time_ms(fns[k], iters))
+            dev, host = device_time_ms(fns[k], iters)
+            r[k]["device_ms"].append(dev)
+            r[k]["host_ms"].append(host)
+    out = {k: {**{f: statistics.median(v) for f, v in r[k].items()},
+               "host_ms_all": r[k]["host_ms"]} for k in fns}
+    for f in ("host_ms", "device_ms"):
+        out[f"pairs_change_{f}_lower"] = sum(
+            c < p for c, p in zip(r["change"][f], r["parent"][f]))
+    out["pairs"] = PAIRS
+    return out
+
+
+def compare_parent(g, parent: Path) -> dict:
+    """The parent's wrappers (``tree_wrappers``) and this checkout's on the
+    same inputs in one process, by ``paired_times``: the decode wrappers at
+    the paths' shapes (with this checkout's launch floor, the same C
+    interface as the parent's), flash_attention at the ranked shape and
+    ssd_scan at the zamba2 shape.  The two trees' outputs must agree."""
+    old = tree_wrappers(parent)
+    new = {"dndm_update": k1_ops.dndm_update,
+           "decode_scores": k3_ops.decode_scores,
+           "flash_attention": k2_ops.flash_attention,
+           "ssd_scan": k4_ops.ssd_scan}
+    out = {}
+    for name, (B, N, K) in DECODE_TIMED:
+        d = decode_inputs(g, B, N, K)
+        fns = {"parent": decode_call(old[name], name, d),
+               "change": decode_call(new[name], name, d)}
+        a, b = fns["parent"](), fns["change"]()
+        if not torch.equal(a if name == "dndm_update" else a[0],
+                           b if name == "dndm_update" else b[0]):
+            raise AssertionError(f"{name}: the parent's tokens differ")
+        iters = 200 if K < BLOCK_MIN_K else 50
+        floor = launch_floor(name, d["logits"], d["mask"], d["gumbel"],
+                             d["x"], d["tau"], d["t"])
+        out[f"{name} {B}x{N}x{K}"] = {
+            **paired_times(fns, iters),
+            "launch_floor_host_ms": statistics.median(
+                device_time_ms(floor, iters)[1] for _ in range(3))}
+    qr, kr, vr = (torch.randn(MT_BATCH, MT_LEN + 56, 8, 64, generator=g,
+                              device="cuda") for _ in range(3))
+    out["flash_attention 8x184x8x64"] = paired_times(
+        {t: (lambda f: lambda: f(qr, kr, vr))(w["flash_attention"])
+         for t, w in (("parent", old), ("change", new))}, 50)
+    B, S, H, P, N, L = K4_FULL[0]
+    ins = ssd_inputs(g, B, S, H, P, N, torch.float32)
+    out["ssd_scan 4x256x80x64x64x128"] = paired_times(
+        {t: (lambda f: lambda: f(*ins, chunk=L))(w["ssd_scan"])
+         for t, w in (("parent", old), ("change", new))}, 20)
+    return out
+
+
+def host_pieces(g, iters: int = 4000, repeats: int = 5) -> dict:
+    """Host microseconds per call of each piece of a decode wrapper call
+    at K = 28 (time.perf_counter over ``iters`` calls, median of
+    ``repeats``): its checks, its output allocation, the data_ptr calls,
+    the entry point's lookup, the stream query, the ctypes call with
+    arguments computed once, build.launch, the launch floor and the whole
+    wrapper.  The pieces that launch run a 3 us kernel each, under the
+    host's pace."""
+    def us(fn) -> float:
+        for _ in range(100):
+            fn()
+        samples = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            samples.append((time.perf_counter() - t0) * 1e6 / iters)
+        torch.cuda.synchronize()
+        return statistics.median(samples)
+
+    lib = build.library().lib
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    d = decode_inputs(g, 8, 256, 28)
+    lg, x, tau, mask, gum = (d[k] for k in ("logits", "x", "tau", "mask",
+                                           "gumbel"))
+    o1 = torch.empty_like(x)
+    args1 = (lg.data_ptr(), gum.data_ptr(), mask.data_ptr(), x.data_ptr(),
+             tau.data_ptr(), o1.data_ptr(), 8 * 256, 28, d["t"], 1, 1.0)
+    out["dndm_update 8x256x28"] = {
+        "wrapper": us(decode_call(k1_ops.dndm_update, "dndm_update", d)),
+        "checks": us(lambda: k1_ops._check(lg, x, tau, mask, gum, 1)),
+        "alloc": us(lambda: torch.empty_like(x)),
+        "data_ptr_x6": us(lambda: (lg.data_ptr(), gum.data_ptr(),
+                                   mask.data_ptr(), x.data_ptr(),
+                                   tau.data_ptr(), o1.data_ptr())),
+        "entry_lookup": us(lambda: build.library().lib.dndm_update_f32),
+        "stream_query": us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev)),
+        "ctypes_call": us(lambda: lib.dndm_update_f32(*args1, stream)),
+        "build_launch": us(lambda: build.launch(
+            "dndm_update", lib.dndm_update_f32, dev, *args1)),
+        "launch_floor": us(launch_floor("dndm_update", lg, mask, gum, x,
+                                        tau, d["t"])),
+    }
+    d = decode_inputs(g, 8, 128, 28)
+    lg, mask, gum = d["logits"], d["mask"], d["gumbel"]
+    tok = lg.new_empty((8, 128), dtype=torch.int32)
+    score = torch.empty_like(tok, dtype=torch.float32)
+    args3 = (lg.data_ptr(), gum.data_ptr(), mask.data_ptr(), tok.data_ptr(),
+             score.data_ptr(), 8 * 128, 28, 1.0)
+    out["decode_scores 8x128x28"] = {
+        "wrapper": us(decode_call(k3_ops.decode_scores, "decode_scores",
+                                  d)),
+        "checks": us(lambda: k3_ops._check(lg, mask, gum)),
+        "alloc": us(lambda: (
+            lambda t: (t, torch.empty_like(t, dtype=torch.float32)))(
+                lg.new_empty((8, 128), dtype=torch.int32))),
+        "ctypes_call": us(lambda: lib.decode_scores_f32(*args3, stream)),
+        "build_launch": us(lambda: build.launch(
+            "decode_scores", lib.decode_scores_f32, dev, *args3)),
+        "launch_floor": us(launch_floor("decode_scores", lg, mask, gum)),
+    }
+    return out
+
+
+REGIME_KS = (28, 128, 256, 512, 768, 1024, 1536, 2048, 4096, 8192)
+REGIME_ROWS = (1024, 2048)
+
+
+# the launcher's choice of the aligned-noise instantiation (row_select.cuh)
+NOISE_CASE_RE = r"return \(g & 15\) == 0 \? kNoiseAligned : kNoiseShifted;"
+
+
+def decode_variants() -> dict:
+    """The two decode sources and row_select.cuh compiled three more
+    times into build/, loaded with their f32 and bf16 entry points:
+    "warp" and "block" with kBlockMinK set so that every K takes the warp
+    regime, or the block regime; "shifted" the block regime with noise
+    always taken by the shifted instantiation (the phase read at run
+    time), aligned or not."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+    variants = {"warp": (1 << 30, False), "block": (1, False),
+                "shifted": (1, True)}
+
+    def compile_variant(name: str, spec: tuple[int, bool]):
+        min_k, shifted = spec
+        d = build.BUILD_DIR / f"regime-{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        for f in ("dndm_update.cu", "decode_scores.cu"):
+            (d / f).write_text((build.CSRC / f).read_text())
+        text = re.sub(BLOCK_MIN_K_RE, f"constexpr int kBlockMinK = {min_k};",
+                      ROW_SELECT.read_text())
+        if shifted:
+            text, n = re.subn(NOISE_CASE_RE, "return kNoiseShifted;", text)
+            assert n == 1, "the launcher's noise case is not found"
+        (d / "row_select.cuh").write_text(text)
+        out = d / "decode.so"
+        build._compile([d / "dndm_update.cu", d / "decode_scores.cu"], out)
+        return out
+
+    with ThreadPoolExecutor(len(variants)) as pool:
+        paths = dict(zip(variants, pool.map(compile_variant, variants,
+                                            variants.values())))
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        for entry in ("dndm_update", "decode_scores"):
+            for dt in ("f32", "bf16"):
+                fn = getattr(lib, f"{entry}_{dt}")
+                fn.argtypes = build.ARGTYPES[f"{entry}_{dt}"]
+                fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def variant_calls(libs: dict, d: dict, dt: str) -> dict:
+    """Each variant's two entry points on the inputs ``d`` (rows in one
+    batch), with arguments computed once; launched once each."""
+    rows, K = d["logits"].shape[1:]
+    stream = torch.cuda.current_stream().cuda_stream
+    o = d["x"].new_empty((2, rows))
+    ptrs = (d["logits"].data_ptr(), d["gumbel"].data_ptr(),
+            d["mask"].data_ptr())
+    args = {"dndm_update": (*ptrs, d["x"].data_ptr(), d["tau"].data_ptr(),
+                            o.data_ptr(), rows, K, d["t"], 1, 1.0, stream),
+            "decode_scores": (*ptrs, o.data_ptr(), o.data_ptr() + 4 * rows,
+                              rows, K, 1.0, stream)}
+    calls = {}
+    for name, lib in libs.items():
+        for entry, a in args.items():
+            fn = getattr(lib, f"{entry}_{dt}")
+            build.check(fn(*a), entry)
+            calls[name, entry] = (lambda f, a: lambda: f(*a))(fn, a)
+    calls["out"] = o
+    return calls
+
+
+def regime_sweep(g, libs: dict) -> dict:
+    """Device ms of both decode kernels in each regime at K in REGIME_KS
+    and the paths' row counts, f32 with Gumbel noise, in the order warp,
+    block, block, warp."""
+    out = []
+    for rows in REGIME_ROWS:
+        for K in REGIME_KS:
+            calls = variant_calls(libs, decode_inputs(g, 1, rows, K), "f32")
+            row = {"rows": rows, "K": K,
+                   "bound_ms": (rows * K * 8 + K * 4) / HBM_BYTES_PER_S * 1e3}
+            for entry in ("dndm_update", "decode_scores"):
+                w1, b1, b2, w2 = (
+                    device_time_ms(calls[v, entry], 50)[0]
+                    for v in ("warp", "block", "block", "warp"))
+                row[entry] = {"warp_ms": statistics.median([w1, w2]),
+                              "block_ms": statistics.median([b1, b2])}
+            out.append(row)
+    return {"block_min_k": BLOCK_MIN_K, "sweep": out}
+
+
+def noise_phase_check(g, libs: dict) -> dict:
+    """Device ms of the block regime's aligned-noise instantiation (as
+    shipped, "block") and of its shifted one ("shifted") at (4, 256,
+    32000) on Gumbel noise aligned with the logits, f32 and bf16 logits,
+    in the order block, shifted, shifted, block, three times: every
+    reading is kept, so the spread shows beside the difference.  The two
+    builds must agree on every token and score."""
+    d = decode_inputs(g, 4, 256, 32000)
+    d = {**d, "logits": d["logits"].reshape(1, 1024, 32000),
+         "gumbel": d["gumbel"].reshape(1, 1024, 32000),
+         "x": d["x"].reshape(1, 1024), "tau": d["tau"].reshape(1, 1024)}
+    out = {}
+    for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        dd = {**d, "logits": d["logits"].to(dtype)}
+        calls = variant_calls(libs, dd, dt)
+        for entry in ("dndm_update", "decode_scores"):
+            got = {}
+            for v in ("block", "shifted"):
+                calls[v, entry]()
+                got[v] = calls["out"].clone()
+            if not torch.equal(got["block"], got["shifted"]):
+                raise AssertionError(f"{entry} {dt}: the builds disagree")
+            r = {"block_ms": [], "shifted_ms": []}
+            for _ in range(3):
+                for v in ("block", "shifted", "shifted", "block"):
+                    r[f"{v}_ms"].append(
+                        device_time_ms(calls[v, entry], 50)[0])
+            out[f"{entry} {dt}"] = r
+    return out
+
+
+def measure_decode(parent: Path | None) -> int:
+    """--measure-decode: the host-time pieces, the noise-phase check, the
+    regime sweep and, with --parent DIR, the parent's decode wrappers
+    beside these."""
+    print(gpu_name_and_power(), flush=True)
+    lib = build.library()
+    print(f"kernels: {lib.path.name} in {lib.seconds:.2f} s", flush=True)
+    for line in ptxas_summary(lib.log):
+        print("  " + line)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    print(json.dumps({"host_pieces_us": host_pieces(g)}), flush=True)
+    libs = decode_variants()
+    print(json.dumps({"noise_phase": noise_phase_check(g, libs)}),
+          flush=True)
+    print(json.dumps({"regime_sweep": regime_sweep(g, libs)}), flush=True)
+    if parent is not None:
+        print(json.dumps({"parent_vs_change": compare_parent(g, parent)}),
+              flush=True)
+    return 0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
+    if "--measure-decode" in sys.argv:
+        return measure_decode(
+            Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
+            if "--parent" in sys.argv else None)
     # 1. the card
     print(gpu_name_and_power(), flush=True)
     if torch.backends.cuda.matmul.allow_tf32:
@@ -1085,7 +1526,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/dndm_update.cu",
          "replaces": "src/repro/kernels/dndm_update/kernel.py:34",
          "launches": counts["dndm_update"], "max_abs_err": float(k1_err),
-         **t["dndm_update"]},
+         **t["dndm_update"], "at_k32000": tz["dndm_update"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
@@ -1095,7 +1536,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/decode_scores.cu",
          "replaces": "src/repro/kernels/decode_scores/kernel.py:35",
          "launches": mt_counts["decode_scores"], "max_abs_err": k3_err,
-         **t["decode_scores"]},
+         **t["decode_scores"],
+         "at_k32000": {**tz["decode_scores"],
+                       "launches": z_counts["decode_scores"]}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:26",

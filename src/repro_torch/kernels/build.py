@@ -158,17 +158,40 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
-def launch(kernel: str, fn, device: torch.device, *args) -> None:
+def inputs_agree(kernel: str, first: torch.Tensor, *others) -> None:
+    """Raise unless every tensor of ``others`` (None entries skipped)
+    lies on ``first``'s device and all are contiguous.  On CUDA the device
+    is compared as ``is_cuda`` and the ``get_device()`` index, which costs
+    the host less than building a ``torch.device`` per tensor; elsewhere
+    as whole ``torch.device`` objects."""
+    if first.is_cuda:
+        index = first.get_device()
+        for a in others:
+            if a is not None and (not a.is_cuda or a.get_device() != index):
+                raise ValueError(f"{kernel} inputs lie on different devices")
+    else:
+        device = first.device
+        for a in others:
+            if a is not None and a.device != device:
+                raise ValueError(f"{kernel} inputs lie on different devices")
+    if not first.is_contiguous():
+        raise ValueError(f"{kernel} inputs must be contiguous")
+    for a in others:
+        if a is not None and not a.is_contiguous():
+            raise ValueError(f"{kernel} inputs must be contiguous")
+
+
+def launch(kernel: str, fn, device: int, *args) -> None:
     """Call the C entry point ``fn`` with ``args`` and, last, the raw
-    handle of ``device``'s current stream, with ``device`` the current
-    CUDA device during the call; raise if it returns a CUDA error.  The
-    raw handle and a device check cost the host less than entering
-    ``torch.cuda.device`` and building a ``torch.cuda.Stream`` for every
-    launch, and the wrappers' host time paces the small kernels."""
-    current = torch.cuda.current_device()
-    if device.index == current:
-        rc = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    handle of the current stream of CUDA device ``device`` (an index),
+    with that device current during the call; raise if it returns a CUDA
+    error.  The raw handle and an integer device check cost the host less
+    than entering ``torch.cuda.device`` and building a
+    ``torch.cuda.Stream`` for every launch, and the wrappers' host time
+    paces the small kernels."""
+    if device == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
     else:
         with torch.cuda.device(device):
-            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
     check(rc, kernel)

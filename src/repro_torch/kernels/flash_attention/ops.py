@@ -73,9 +73,10 @@ def flash_attention(q, k, v, *, causal: bool = False, window: int = 0):
     B, S, H, hd = q.shape
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     strides = [st for a in (q, k, v, out) for st in a.stride()[:3]]
-    build.launch("flash_attention", fn, q.device, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], hd,
-                 *strides, int(causal), int(window), 1.0 / hd ** 0.5)
+    build.launch("flash_attention", fn, q.get_device(), q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+                 k.shape[2], hd, *strides, int(causal), int(window),
+                 1.0 / hd ** 0.5)
     flash_attention.launches += 1
     return out
 

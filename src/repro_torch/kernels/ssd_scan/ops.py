@@ -150,9 +150,10 @@ def _launch(x, dtv, A, Bm, Cm, chunk: int):
     cb = cs_last + 4 * n_cs
     strides = (*x.stride()[:3], *dtv.stride(), *Bm.stride()[:2],
                *Cm.stride()[:2], *y.stride()[:3])
-    build.launch("ssd_scan", fn, x.device, x.data_ptr(), dtv.data_ptr(),
-                 A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-                 states, cs_last, cb, B, S, H, P, N, L, *strides)
+    build.launch("ssd_scan", fn, x.get_device(), x.data_ptr(),
+                 dtv.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 y.data_ptr(), states, cs_last, cb, B, S, H, P, N, L,
+                 *strides)
     ssd_scan.launches += 1
     return y, scratch
 

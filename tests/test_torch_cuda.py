@@ -4,9 +4,12 @@ Marked ``cuda``: they skip where no CUDA device is present (the card is
 looked for inside the fixture, never at import).  On a machine with an
 H100:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import re
+
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.decode_scores import ops as k3_ops
 from repro_torch.kernels.decode_scores import ref as k3_ref
 from repro_torch.kernels.dndm_update import ops as k1_ops
@@ -18,6 +21,15 @@ from repro_torch.kernels.ssd_scan import ref as k4_ref
 
 pytestmark = pytest.mark.cuda
 
+# K from which the decode kernels give a row a block (row_select.cuh),
+# and the decode shapes beyond the paths' K = 28: the zamba2 path's
+# vocabulary, GPT-2's odd one (no row 16-byte aligned) and K on both
+# sides of the regime threshold
+BLOCK_MIN_K = int(re.search(r"constexpr int kBlockMinK = (\d+);",
+                            (build.CSRC / "row_select.cuh").read_text())[1])
+DECODE_WIDE = [(4, 256, 32000), (2, 16, 50257), (2, 64, BLOCK_MIN_K - 1),
+               (2, 64, BLOCK_MIN_K), (2, 64, BLOCK_MIN_K + 1)]
+
 
 @pytest.fixture
 def gen():
@@ -27,7 +39,7 @@ def gen():
 
 
 @pytest.mark.parametrize("B,N,K", [(1, 16, 32), (2, 64, 257), (8, 256, 28),
-                                   (4, 256, 32000)])
+                                   *DECODE_WIDE])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dndm_update_kernel_is_bitwise_plain(gen, B, N, K, dtype):
     logits = torch.randn(B, N, K, generator=gen, device="cuda").to(dtype)
@@ -92,7 +104,7 @@ def test_flash_attention_rejects_misaligned_kv(gen, dtype):
 
 
 @pytest.mark.parametrize("B,N,K", [(3, 40, 28), (3, 40, 32), (3, 40, 33),
-                                   (2, 64, 257), (8, 128, 28)])
+                                   (2, 64, 257), (8, 128, 28), *DECODE_WIDE])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_scores_kernel_matches_plain(gen, B, N, K, dtype):
     """Tokens bitwise; scores within 1e-5 (the kernel's online logsumexp
@@ -111,6 +123,93 @@ def test_decode_scores_kernel_matches_plain(gen, B, N, K, dtype):
             assert torch.equal(tok, ptok)
             torch.testing.assert_close(score, pscore, atol=1e-5, rtol=1e-5)
     assert k3_ops.decode_scores.launches == before + 4
+
+
+def _both_decodes(logits, **kw):
+    """dndm_update's tokens where eq. (9) reveals every position (version
+    2 at t = 1) and decode_scores' (tokens, scores), each against its plain
+    version; asserts one launch per call.  Returns the tokens."""
+    B, N, _ = logits.shape
+    x = torch.zeros((B, N), dtype=torch.int32, device=logits.device)
+    tau = torch.ones_like(x)
+    before = (k1_ops.dndm_update.launches, k3_ops.decode_scores.launches)
+    fused = k1_ops.dndm_update(logits, x, tau, 1, version=2, **kw)
+    tok, score = k3_ops.decode_scores(logits, **kw)
+    assert (k1_ops.dndm_update.launches,
+            k3_ops.decode_scores.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(fused, k1_ref.dndm_update(logits, x, tau, 1,
+                                                 version=2, **kw))
+    ptok, pscore = k3_ref.decode_scores(logits, **kw)
+    assert torch.equal(tok, ptok) and torch.equal(fused, tok)
+    torch.testing.assert_close(score, pscore, atol=1e-5, rtol=1e-5)
+    return tok
+
+
+@pytest.mark.parametrize("K", [28, BLOCK_MIN_K + 1, 32000, 50257])
+def test_decode_kernels_break_ties_to_the_lowest_index(gen, K):
+    """bf16 logits without noise tie at the maximum in many rows; an
+    all-equal row answers 0; a maximum among a row's first elements (the
+    scalar head of an unaligned row) and one among its last (the tail)
+    are found."""
+    B, N = 2, 16
+    logits = torch.randn(B, N, K, generator=gen, device="cuda")
+    logits = (logits * 2).round().to(torch.bfloat16)
+    logits[0, 0] = 0.0                        # all equal -> 0
+    logits[0, 1, 1] = 100.0                   # among the first elements
+    logits[0, 2, K - 2] = 100.0               # among the last
+    mask = torch.zeros(K, device="cuda")
+    tok = _both_decodes(logits, mask=mask)
+    assert tok[0, :3].tolist() == [0, 1, K - 2]
+    # with the -1e9 mask at the last id, f32 with noise at temperature 0.7
+    mask[-1] = -1e9
+    u = torch.rand(B, N, K, generator=gen, device="cuda").clamp_(min=1e-30)
+    _both_decodes(logits.float(), mask=mask, gumbel=-torch.log(-torch.log(u)),
+                  temperature=0.7)
+
+
+@pytest.mark.parametrize("K", [28, BLOCK_MIN_K + 1, 32000, 50257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", ["logits", "gumbel", "both"])
+def test_decode_kernels_take_views_at_any_alignment(gen, K, dtype, offset):
+    """Contiguous views that start one element past an allocation (so not
+    on a 16-byte boundary) are taken, not refused: the logits, the noise,
+    or both (then the two lie at the same phase again)."""
+    shape = (2, 16, K)
+    logits = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    u = torch.rand(shape, generator=gen, device="cuda").clamp_(min=1e-30)
+    gumbel = -torch.log(-torch.log(u))
+    if offset != "gumbel":
+        logits = _misaligned(shape, dtype).copy_(logits)
+    if offset != "logits":
+        gumbel = _misaligned(shape, torch.float32).copy_(gumbel)
+    assert logits.is_contiguous() and gumbel.is_contiguous()
+    mask = torch.zeros(K, device="cuda")
+    mask[-1] = -1e9
+    for temp in (1.0, 0.7):
+        _both_decodes(logits, mask=mask, gumbel=gumbel, temperature=temp)
+
+
+@pytest.mark.parametrize("which", ["mask", "gumbel", "tau"])
+def test_decode_wrappers_reject_inputs_off_the_card(gen, which):
+    """A CUDA logits tensor with another input on the CPU raises (the
+    device is compared by index on the card), and nothing is launched."""
+    logits = torch.randn(2, 8, 40, generator=gen, device="cuda")
+    kw = {"mask": torch.zeros(40, device="cuda"),
+          "gumbel": torch.zeros(2, 8, 40, device="cuda")}
+    x = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
+    tau = torch.ones_like(x)
+    if which == "tau":
+        tau = tau.cpu()
+    else:
+        kw[which] = kw[which].cpu()
+    before = (k1_ops.dndm_update.launches, k3_ops.decode_scores.launches)
+    with pytest.raises(ValueError, match="different devices"):
+        k1_ops.dndm_update(logits, x, tau, 1, **kw)
+    if which != "tau":
+        with pytest.raises(ValueError, match="different devices"):
+            k3_ops.decode_scores(logits, **kw)
+    assert (k1_ops.dndm_update.launches,
+            k3_ops.decode_scores.launches) == before
 
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [

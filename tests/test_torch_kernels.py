@@ -159,7 +159,7 @@ def test_decode_scores_cpu_path_counts_nothing():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mask", "gumbel", "layout",
-                                 "rank"])
+                                 "rank", "device"])
 def test_decode_scores_rejects_what_the_kernel_cannot_take(bad):
     logits = torch.randn(2, 4, 10)
     kw = {}
@@ -167,6 +167,8 @@ def test_decode_scores_rejects_what_the_kernel_cannot_take(bad):
         logits = logits.half()
     elif bad == "mask":
         kw["mask"] = torch.zeros(11)
+    elif bad == "device":
+        kw["mask"] = torch.zeros(10, device="meta")
     elif bad == "gumbel":
         kw["gumbel"] = torch.zeros(2, 4, 10, dtype=torch.float64)
     elif bad == "layout":
@@ -280,7 +282,7 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(bad):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "x_dtype", "mask", "gumbel",
-                                 "layout", "version"])
+                                 "layout", "version", "device"])
 def test_dndm_update_rejects_what_the_kernel_cannot_take(bad):
     logits = torch.randn(2, 4, 10)
     x = torch.zeros((2, 4), dtype=torch.int32)
@@ -288,6 +290,8 @@ def test_dndm_update_rejects_what_the_kernel_cannot_take(bad):
     kw = {}
     if bad == "dtype":
         logits = logits.half()
+    elif bad == "device":
+        tau = tau.to("meta")
     elif bad == "x_dtype":
         x = x.long()
     elif bad == "mask":
