@@ -18,12 +18,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      tests/test_kernels.py allows); the ranked path's prefixed lengths
      (S = 179, 184) included;
   5. decode_scores kernel vs its plain version, K in {28, 32, 33, 100,
-     257, 1000}, the ranked path's (8, 128, 28) and the wide shapes of 3
-     ((4, 256, 32000), (2, 16, 50257), the threshold - 1, at it, + 1),
-     f32 and bf16, with and without Gumbel noise, temperature 1 and 0.7,
-     mask -1e9 at the last id: tokens bitwise equal, scores within
-     atol/rtol 1e-5 (the kernel's online logsumexp sums in another
-     order);
+     257, 1000}, the shapes of the paths that decode through it (the
+     ranked path's (8, 128, 28), continuous text8's (8, 256, 28), the
+     continuous sweep's (4, 64, 28)) and the wide shapes of 3 ((4, 256,
+     32000), (2, 16, 50257), the threshold - 1, at it, + 1), f32 and
+     bf16, with and without Gumbel noise (at the continuous paths'
+     shapes also a rolling batch's slab: every other row drawn from its
+     own generator, the free rows zeros in), temperature 1 and 0.7, mask
+     -1e9 at the last id: tokens bitwise equal, scores within atol/rtol
+     1e-5 (the kernel's online logsumexp sums in another order);
   5b. ssd_scan kernel vs its plain version (ref.ssd_chunked): the four
      shapes of tests/test_kernels.py::test_ssd_scan_sweep (ragged S = 33
      included) in f32 and bf16 at that test's bars (3e-5 f32, 5e-2
@@ -92,9 +95,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      dndm-text8; dndm_topk and dndm_c_topk on dndm-mt with a 56-token
      prefix) under torch.profiler: device kernel time and kernel launches
      per network call, the top kernels, and the device busy share (kernel
-     time over the path's timed ms per network call).
+     time over the path's timed ms per network call);
+ 11. continuous serving of the text8 path: the model of 6, T = 1000,
+     independent tau sets (shared_tau=False), 16 dndm requests of 256
+     tokens through a ContinuousScheduler (max_batch 8), then the same
+     tape through a BatchScheduler.  Checks: each request's NFE = its
+     plan's unique tau values (replayed from its seed), steps_skipped =
+     1000 - NFE, decode_scores launches = the scheduler's total_calls,
+     flash_attention = 12 x total_calls, dndm_update none; the drain's
+     NFE per batch = the union of its rows' tau sets, its launches as in
+     6.  Reports both modes' aggregate NFE, req/s and ms per network
+     call; then serves the tape once more in each mode, seeded alike (so
+     the same calls), under torch.profiler (CUDA activity): per call the
+     device's kernel time and launches, the busy share (kernel time over
+     the timed ms per call), and the host's own time (the wall outside
+     CUDA API calls) beside its time inside them;
+ 12. continuous serving of the ranked path: the model of 7, 8 dndm_topk
+     + 8 dndm_c_topk requests of 128 tokens with prefixes of 48 or 64
+     tokens, so four (method, prefix length) groups of 4, max_batch 8,
+     T = 1000, then the same tape drained; checks and readings as in 11,
+     flash_attention = 6 x total_calls;
+ 13. the continuous registry sweep: all 12 methods through
+     ContinuousScheduler (11 on absorbing noise, ddim on multinomial with
+     stride 2), an integer-valued denoiser at dndm-mt's vocabulary on the
+     card, max_batch 4, N 64, T 50, each method's second request admitted
+     mid-flight; every request bitwise equal to its solo
+     engine.generate(seed, 1, 64) (so decode_scores + a per-row where
+     choose dndm_update's tokens), NFE and steps by the method's rule,
+     decode_scores launched once per call of the 11 methods that decode
+     through it.
 
-The last lines are JSON: the main path, the kernels, and
+The last lines are JSON: the paths, the continuous phases, the kernels, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 
@@ -125,7 +156,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.configs as configs_lib  # noqa: E402
-from repro_torch.core.decode import gumbel_noise  # noqa: E402
+from repro_torch.core.decode import (gumbel_noise,  # noqa: E402
+                                     row_gumbel_noise)
 from repro_torch.core.samplers import loop, registry  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_scores import ops as k3_ops  # noqa: E402
@@ -138,7 +170,8 @@ from repro_torch.kernels.ssd_scan import ops as k4_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as k4_ref  # noqa: E402
 from repro_torch.models import mamba2 as mamba2_lib  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.serving import (BatchScheduler, EngineConfig,  # noqa: E402
+from repro_torch.serving import (BatchScheduler,  # noqa: E402
+                                 ContinuousScheduler, EngineConfig,
                                  GenerationEngine)
 
 # H100 SXM data sheet (dense): HBM rate, f32 rate outside the tensor
@@ -178,8 +211,12 @@ K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 MAIN_REQUESTS, MAIN_LEN, MAIN_BATCH, MAIN_T = 16, 256, 8, 1000
 
+# the shapes that the serving paths give decode_scores: the ranked path's,
+# continuous text8's and the continuous sweep's; there a rolling batch's
+# per-row slab is also held against the plain version
+K3_PATH_SHAPES = [(8, 128, 28), (8, 256, 28), (4, 64, 28)]
 K3_SHAPES = ([(3, 40, K) for K in (28, 32, 33, 100, 257, 1000)]
-             + [(8, 128, 28)] + DECODE_WIDE)
+             + K3_PATH_SHAPES + DECODE_WIDE)
 K3_TOL = 1e-5
 
 # the ranked path: (method, requests) in submission order
@@ -205,6 +242,10 @@ DECODE_TOKENS_METHODS = frozenset({
     "dndm_topk", "dndm_topk_static", "dndm_c", "dndm_c_topk", "rdm",
     "rdm_k", "mask_predict", "ddim"})
 FUSED_METHODS = frozenset({"dndm", "dndm2", "dndm_static"})
+
+# continuous serving: the registry sweep on an integer-valued denoiser
+# (first wave, then a second that lands mid-flight)
+CSWEEP_BATCH, CSWEEP_N, CSWEEP_T, CSWEEP_STRIDE = 4, 64, 50, 2
 
 
 def gpu_name_and_power() -> str:
@@ -378,8 +419,14 @@ def check_decode_scores(g) -> tuple[int, float]:
             logits = torch.randn(B, N, K, generator=g, device="cuda").to(dt)
             mask = torch.zeros(K, device="cuda")
             mask[K - 1] = -1e9
-            noise = gumbel_noise(g, (B, N, K), "cuda")
-            for gum in (None, noise):
+            noises = {"none": None,
+                      "slab": gumbel_noise(g, (B, N, K), "cuda")}
+            if (B, N, K) in K3_PATH_SHAPES:
+                noises["rows"] = row_gumbel_noise(
+                    [torch.Generator(device="cuda").manual_seed(100 + i)
+                     if i % 2 == 0 else None for i in range(B)],
+                    (N, K), "cuda")
+            for noise, gum in noises.items():
                 for temp in (1.0, 0.7):
                     kw = dict(mask=mask, gumbel=gum, temperature=temp)
                     tok, score = k3_ops.decode_scores(logits, **kw)
@@ -387,8 +434,7 @@ def check_decode_scores(g) -> tuple[int, float]:
                     torch.cuda.synchronize()
                     err = float((score - pscore).abs().max())
                     max_err = max(max_err, err)
-                    where = (f"at {(B, N, K)} {dt} gumbel={gum is not None} "
-                             f"temp={temp}")
+                    where = f"at {(B, N, K)} {dt} noise={noise} temp={temp}"
                     if not torch.equal(tok, ptok):
                         raise AssertionError(
                             f"decode_scores tokens != plain {where}: "
@@ -461,6 +507,12 @@ KERNELS = {"dndm_update": k1_ops.dndm_update,
            "ssd_scan": k4_ops.ssd_scan}
 
 
+# a part of each kernel's CUDA name, by wrapper (one kernel per launch)
+PROFILED_KERNELS = {"dndm_update": "dndm_update_",
+                    "flash_attention": "flash_attention_kernel",
+                    "decode_scores": "decode_scores_"}
+
+
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
@@ -509,21 +561,27 @@ def per_call_launches(cfg, decode: str) -> dict:
     return want
 
 
+def check_tokens(done, n_req: int, n_len: int, noise, vocab: int) -> None:
+    """Every request done, with ``n_len`` in-vocabulary tokens and no
+    [MASK] left."""
+    if len(done) != n_req:
+        raise AssertionError(f"{len(done)} of {n_req} requests done")
+    for r in done.values():
+        if r.result.shape != (n_len,):
+            raise AssertionError(f"request {r.rid}: {r.result.shape} tokens")
+        if (r.result == noise.mask_id).any():
+            raise AssertionError(f"request {r.rid}: [MASK] left")
+        if not ((r.result >= 0) & (r.result < vocab)).all():
+            raise AssertionError(f"request {r.rid}: token out of vocab")
+
+
 def check_main_path(model, sched, done, counts, n_req: int = MAIN_REQUESTS,
                     n_len: int = MAIN_LEN) -> dict:
     engine = sched.engine
     cfg = model.cfg
-    mask_id = engine.noise.mask_id
-    if len(done) != n_req:
-        raise AssertionError(f"{len(done)} of {n_req} requests done")
+    check_tokens(done, n_req, n_len, engine.noise, cfg.vocab_size)
     batches: dict[int, list] = {}
     for r in done.values():
-        if r.result.shape != (n_len,):
-            raise AssertionError(f"request {r.rid}: {r.result.shape} tokens")
-        if (r.result == mask_id).any():
-            raise AssertionError(f"request {r.rid}: [MASK] left")
-        if not ((r.result >= 0) & (r.result < cfg.vocab_size)).all():
-            raise AssertionError(f"request {r.rid}: token out of vocab")
         batches.setdefault(r.seed, []).append(r)
     dist = engine.runtime().dist
     timed_nfe, warmup_nfe, timed_wall = 0, 0, 0.0
@@ -632,21 +690,24 @@ def mt_path():
     return model, sched, done, drain_s, counts
 
 
+def ranked_tape() -> list:
+    """The continuous ranked phase's requests: per method of MT_METHODS,
+    source prefixes of 48 and 64 tokens in turn (any id but [MASK]), so
+    that the scheduler forms four (method, prefix length) groups."""
+    g = torch.Generator().manual_seed(0)
+    vocab = configs_lib.get("dndm-mt").vocab_size
+    return [(method, torch.randint(0, vocab - 1, (MT_PREFIX[i % 2],),
+                                   generator=g, dtype=torch.int32).numpy())
+            for method, n in MT_METHODS for i in range(n)]
+
+
 def check_mt_path(model, sched, done, counts) -> dict:
     engine = sched.engine
     cfg = model.cfg
-    mask_id = engine.noise.mask_id
-    n_req = sum(n for _, n in MT_METHODS)
-    if len(done) != n_req:
-        raise AssertionError(f"{len(done)} of {n_req} requests done")
+    check_tokens(done, sum(n for _, n in MT_METHODS), MT_LEN, engine.noise,
+                 cfg.vocab_size)
     batches: dict[int, list] = {}
     for r in done.values():
-        if r.result.shape != (MT_LEN,):
-            raise AssertionError(f"request {r.rid}: {r.result.shape} tokens")
-        if (r.result == mask_id).any():
-            raise AssertionError(f"request {r.rid}: [MASK] left")
-        if not ((r.result >= 0) & (r.result < cfg.vocab_size)).all():
-            raise AssertionError(f"request {r.rid}: token out of vocab")
         batches.setdefault(r.seed, []).append(r)
     dist = engine.runtime().dist
     nfe, timed_wall, total_nfe = {}, {}, 0
@@ -739,6 +800,281 @@ def registry_sweep(model) -> dict:
                                      f"times, expected {v}")
         out[name] = {"nfe": res.nfe, **counts}
     return out
+
+
+class OracleModel:
+    """An integer-valued denoiser of dndm-mt's vocabulary on the card:
+    logits in [0, 15) from each row's own tokens, positions, step
+    round(t T) and prefix.  Exact arithmetic, one row independent of the
+    others, so a row served in a rolling batch must equal its solo run bit
+    for bit."""
+
+    def __init__(self, T: int):
+        self.cfg = configs_lib.get("dndm-mt")
+        self.device = torch.device("cuda", torch.cuda.current_device())
+        self.T = T
+
+    def denoise_fn(self):
+        K, T, dev = self.cfg.vocab_size, self.T, self.device
+
+        def fn(x_t, t, cond):
+            k = torch.arange(K, dtype=torch.int32, device=dev)
+            n = torch.arange(x_t.shape[1], dtype=torch.int32, device=dev)
+            tt = torch.round(t * T).to(torch.int32)
+            v = (x_t[..., None] * 3 + k * 7 + n[None, :, None] * 5
+                 + tt[:, None, None]) % 11
+            if cond is not None:
+                v = v + (cond["prefix_tokens"].sum(-1) % 5)[:, None, None]
+            return v.to(torch.float32)
+        return fn
+
+
+def check_steps(r, want_nfe: int, T: int, N: int) -> None:
+    """A continuously served request's NFE and step accounting."""
+    if r.nfe != want_nfe or r.nfe != len(r.plan.times):
+        raise AssertionError(f"request {r.rid} ({r.method}): NFE {r.nfe}, "
+                             f"plan {len(r.plan.times)}, want {want_nfe}")
+    want = (N, 0) if r.plan.T == 0 else (r.nfe, T - r.nfe)
+    if (r.steps_executed, r.steps_skipped) != want:
+        raise AssertionError(f"request {r.rid} ({r.method}): executed / "
+                             f"skipped {r.steps_executed} / "
+                             f"{r.steps_skipped}, want {want}")
+
+
+def continuous_sweep() -> dict:
+    """All 12 methods through ContinuousScheduler on the card, on the
+    integer-valued denoiser at dndm-mt's vocabulary: N 64, T 50, 4 rows;
+    ddim on multinomial noise with stride 2 (its own scheduler), the rest
+    absorbing.  Each method's first request is pumped alone, its second
+    lands mid-flight.  Every request must equal its solo
+    ``engine.generate(seed, 1, N)`` bit for bit: for the DNDM methods the
+    solo path decodes through dndm_update and the rows through
+    decode_scores and a per-row where."""
+    model = OracleModel(CSWEEP_T)
+    out = {"requests": 0, "total_calls": 0, "launches": {}, "nfe": {}}
+    reset_counts()
+    scheds = []
+    for kind, methods in (("absorbing", registry.names("absorbing")),
+                          ("multinomial", ("ddim",))):
+        engine = GenerationEngine(model, EngineConfig(
+            steps=CSWEEP_T, noise_kind=kind, ddim_stride=CSWEEP_STRIDE,
+            x0_mode="sample", shared_tau=False), device="cuda")
+        sched = ContinuousScheduler(engine, max_batch=CSWEEP_BATCH,
+                                    bucket_len=CSWEEP_N, seed=5,
+                                    device="cuda")
+        rids = []
+        for wave, n_tok in enumerate((CSWEEP_N, CSWEEP_N - 8)):
+            for m in methods:
+                rids.append(sched.submit(n_tok, method=m))
+                sched.pump()
+        sched.run()
+        scheds.append((engine, sched, rids))
+    counts = read_counts(scheds[0][0])
+    total = sum(s.total_calls for _, s, _ in scheds)
+    d3pm_calls = scheds[0][1]._runners[("d3pm", 0)].calls
+    want = {"decode_scores": total - d3pm_calls, "dndm_update": 0,
+            "flash_attention": 0, "ssd_scan": 0}
+    for k, v in want.items():
+        if counts[k] != v:
+            raise AssertionError(f"continuous sweep: {k} launched "
+                                 f"{counts[k]} times, expected {v}")
+    for engine, sched, rids in scheds:
+        rt = engine.runtime()
+        for rid in rids:
+            r = sched.done[rid]
+            spec = registry.get(r.method)
+            if spec.kind == "scan":
+                want_nfe = spec.static_nfe(rt, CSWEEP_N)
+            else:
+                gen = torch.Generator(device="cuda").manual_seed(r.seed)
+                tau, *_ = loop.setup(gen, engine.noise, 1, CSWEEP_N,
+                                     dist=rt.dist, device=engine.device)
+                want_nfe = len(loop.unique_times(tau.cpu().numpy()))
+            check_steps(r, want_nfe, CSWEEP_T, CSWEEP_N)
+            solo, _ = engine.generate(r.seed, 1, CSWEEP_N, method=r.method)
+            if not (solo.tokens[0, : r.length].cpu().numpy()
+                    == r.result).all():
+                raise AssertionError(f"continuous {r.method} request {rid} "
+                                     "!= its solo run")
+            out["nfe"].setdefault(r.method, []).append(r.nfe)
+        out["requests"] += len(rids)
+        out["total_calls"] += sched.total_calls
+    out["launches"] = counts
+    return out
+
+
+def serve_tape(sched, tape, n_len: int):
+    """Submit ``tape`` ((method, prefix) pairs) and run ``sched``; returns
+    (finished requests, submit seconds, total seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for method, prefix in tape:
+        sched.submit(n_len, prefix=prefix, method=method)
+    submit_s = time.perf_counter() - t0
+    done = sched.run()
+    torch.cuda.synchronize()
+    return done, submit_s, time.perf_counter() - t0
+
+
+def continuous_vs_drain(model, tape, n_len: int, batch: int,
+                        steps: int) -> dict:
+    """One tape of requests ((method, prefix) pairs) served by
+    ContinuousScheduler, then by BatchScheduler, on one engine with
+    independent tau sets (``shared_tau=False``, the setting of the JAX
+    package's continuous-vs-drain claim), absorbing noise, Gumbel
+    decoding, T = ``steps``.  Checks each request's NFE and steps, and
+    each kernel's launches against the network calls; returns both
+    modes' aggregate NFE, req/s and ms per network call, and each mode's
+    ``profile_serving`` of the same tape with its device busy share."""
+    cfg = model.cfg
+    engine = GenerationEngine(model, EngineConfig(
+        method=tape[0][0], steps=steps, noise_kind="absorbing",
+        x0_mode="sample", shared_tau=False), device="cuda")
+    rt = engine.runtime()
+    # the rows decode through decode_scores; a drain batch of the DNDM
+    # methods through dndm_update
+    per_call = per_call_launches(cfg, "decode_scores")
+    fused, = {m in FUSED_METHODS for m, _ in tape}
+    per_call_drain = per_call_launches(
+        cfg, "dndm_update" if fused else "decode_scores")
+    res = {}
+
+    def continuous():
+        return ContinuousScheduler(engine, max_batch=batch,
+                                   bucket_len=n_len, seed=0, device="cuda")
+
+    def drain_sched():
+        return BatchScheduler(engine, max_batch=batch, bucket_len=n_len,
+                              seed=0, device="cuda")
+
+    sched = continuous()
+    reset_counts()
+    engine.network_calls = 0
+    done, submit_s, wall = serve_tape(sched, tape, n_len)
+    counts = read_counts(engine)
+    check_tokens(done, len(tape), n_len, engine.noise, cfg.vocab_size)
+    for r in done.values():
+        if registry.get(r.method).continuous_time:
+            want_nfe = n_len
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(r.seed)
+            tau, *_ = loop.setup(gen, engine.noise, 1, n_len, dist=rt.dist,
+                                 device=engine.device)
+            want_nfe = len(loop.unique_times(tau.cpu().numpy()))
+        check_steps(r, want_nfe, steps, n_len)
+    calls = sched.total_calls
+    if counts["network_calls"] != calls:
+        raise AssertionError(f"engine made {counts['network_calls']} calls, "
+                             f"the scheduler {calls}")
+    for k, per in per_call.items():
+        if counts[k] != per * calls:
+            raise AssertionError(f"continuous: {k} launched {counts[k]} "
+                                 f"times, expected {per} x {calls} calls")
+    res["continuous"] = {
+        "total_calls": calls, "requests": len(done),
+        "groups": len(sched._runners),
+        "sum_request_nfe": sum(r.nfe for r in done.values()),
+        "steps_skipped": sum(r.steps_skipped for r in done.values()),
+        "submit_s": submit_s, "wall_s": wall,
+        "req_per_s": len(done) / wall, "ms_per_network_call":
+        1e3 * (wall - submit_s) / calls, "launches": counts}
+
+    drain = drain_sched()
+    reset_counts()
+    engine.network_calls = 0
+    ddone, _, dwall = serve_tape(drain, tape, n_len)
+    dcounts = read_counts(engine)
+    check_tokens(ddone, len(tape), n_len, engine.noise, cfg.vocab_size)
+    batches: dict[int, list] = {}
+    for r in ddone.values():
+        batches.setdefault(r.seed, []).append(r)
+    timed_nfe, timed_wall = 0, 0.0
+    for seed, reqs in batches.items():
+        B = drain.batch_bucket(len(reqs))
+        if registry.get(reqs[0].method).continuous_time:
+            want = n_len
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            tau, *_ = loop.setup(gen, engine.noise, B, n_len, dist=rt.dist,
+                                 device=engine.device)
+            want = len(loop.unique_times(tau.cpu().numpy()))
+        if reqs[0].nfe != want:
+            raise AssertionError(f"drain batch {seed}: NFE {reqs[0].nfe}, "
+                                 f"union of its tau sets {want}")
+        timed_nfe += reqs[0].nfe
+        timed_wall += reqs[0].batch_wall
+    for k, per in per_call_drain.items():
+        if dcounts[k] != per * dcounts["network_calls"]:
+            raise AssertionError(f"drain: {k} launched {dcounts[k]} times, "
+                                 f"expected {per} x "
+                                 f"{dcounts['network_calls']} calls")
+    res["drain"] = {
+        "total_calls": timed_nfe, "batches": len(batches),
+        "network_calls_with_warmup": dcounts["network_calls"],
+        "wall_s": dwall, "timed_wall_s": timed_wall,
+        "req_per_s": len(ddone) / dwall,
+        "req_per_s_timed": len(ddone) / timed_wall,
+        "ms_per_network_call": 1e3 * timed_wall / timed_nfe,
+        "launches": dcounts}
+    res["calls_drain_over_continuous"] = timed_nfe / calls
+    for mode, make, want in (("continuous", continuous, calls),
+                             ("drain", drain_sched, timed_nfe)):
+        prof = profile_serving(make(), tape, n_len)
+        if prof["calls"] != want:
+            raise AssertionError(f"profiled {mode} serving made "
+                                 f"{prof['calls']} calls, the timed {want}")
+        prof["device_busy_share"] = (prof["device_ms"]
+                                     / res[mode]["ms_per_network_call"])
+        res[mode]["profile"] = prof
+    return res
+
+
+def profile_serving(sched, tape, n_len: int) -> dict:
+    """Serve ``tape`` once more on ``sched``, a fresh scheduler seeded as
+    the timed one (so it makes the same network calls), under
+    torch.profiler with CUDA activity: the device's kernels, copies and
+    fills, and the host's CUDA API calls (``cuda*``, ``cu*``).  Per network
+    call: ``device_ms`` and ``launches`` (the device's events);
+    ``host_ms``, the wall time outside CUDA API calls (the
+    host's own work: Python, dispatch, the schedulers' and samplers' host
+    arithmetic); ``runtime_ms``, the wall time inside them (launching
+    and copying, and waiting for the card: synchronisations, copies to
+    the host, launches into a full queue); ``ms``, the profiled wall,
+    above the timed run's by the profiler's own cost.  The profile must
+    hold one kernel for each launch that the port's kernel wrappers
+    counted (a trace that dropped events fails)."""
+    from torch.profiler import ProfilerActivity, profile
+    engine = sched.engine
+    calls0 = engine.network_calls
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, wall = serve_tape(sched, tape, n_len)
+    calls = engine.network_calls - calls0
+    counted = read_counts(engine)
+    device_ns, launches, spans = 0, 0, []
+    traced = dict.fromkeys(PROFILED_KERNELS, 0)
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            device_ns += e.duration_ns()
+            launches += 1
+            for k, stem in PROFILED_KERNELS.items():
+                traced[k] += stem in e.name()
+        elif e.name().startswith("cu"):
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    if not spans or any(traced[k] != counted[k] for k in traced):
+        raise AssertionError(
+            f"profile of {calls} calls: {len(spans)} runtime calls, "
+            f"kernels {traced} against the launches counted "
+            f"{ {k: counted[k] for k in traced} }")
+    runtime_ns, reach = 0, 0          # the union of the (nested) calls
+    for start, end in sorted(spans):
+        runtime_ns += max(0, end - max(start, reach))
+        reach = max(reach, end)
+    return {"calls": calls, "ms": 1e3 * wall / calls,
+            "device_ms": device_ns / 1e6 / calls,
+            "launches": launches / calls,
+            "host_ms": (1e3 * wall - runtime_ns / 1e6) / calls,
+            "runtime_ms": runtime_ns / 1e6 / calls}
 
 
 def profile_run(engine, method: str, B: int, N: int, prefix_len: int = 0,
@@ -1478,8 +1814,15 @@ def main() -> int:
           f"{logits_err:.3g}", flush=True)
     # 10. (run here, while the model is loaded) the path under a profiler
     main_prof = profile_run(sched.engine, "dndm", MAIN_BATCH, MAIN_LEN)
-    del model, sched
     lap("text8_path")
+    # 11. the text8 path served continuously, and drained, same tape
+    cont_text8 = continuous_vs_drain(model, [("dndm", None)] * MAIN_REQUESTS,
+                                     MAIN_LEN, MAIN_BATCH, MAIN_T)
+    print(f"continuous text8: {cont_text8['continuous']['total_calls']} "
+          f"calls against drain's {cont_text8['drain']['total_calls']}",
+          flush=True)
+    del model, sched
+    lap("text8_continuous")
 
     # 7. the ranked path
     mt_model, mt_sched, mt_done, mt_drain_s, mt_counts = mt_path()
@@ -1497,8 +1840,20 @@ def main() -> int:
     sweep = registry_sweep(mt_model)
     print(f"registry sweep: {len(sweep)} methods; NFE "
           f"{ {k: v['nfe'] for k, v in sweep.items()} }", flush=True)
-    del mt_model, mt_sched
     lap("ranked_path_and_sweep")
+    # 12. the ranked path served continuously, and drained, same tape
+    cont_ranked = continuous_vs_drain(mt_model, ranked_tape(),
+                                      MT_LEN, MT_BATCH, MT_T)
+    print(f"continuous ranked: {cont_ranked['continuous']['total_calls']} "
+          f"calls against drain's {cont_ranked['drain']['total_calls']}",
+          flush=True)
+    del mt_model, mt_sched
+    # 13. every registered method served continuously vs its solo run
+    csweep = continuous_sweep()
+    print(f"continuous sweep: {csweep['requests']} requests of 12 methods "
+          f"bitwise equal to their solo runs in {csweep['total_calls']} "
+          "calls", flush=True)
+    lap("ranked_continuous_and_sweep")
 
     # 8b. the zamba2 path
     z_model, z_sched, z_done, z_drain_s, z_counts = main_path(
@@ -1526,16 +1881,28 @@ def main() -> int:
          "source": "src/repro_torch/csrc/dndm_update.cu",
          "replaces": "src/repro/kernels/dndm_update/kernel.py:34",
          "launches": counts["dndm_update"], "max_abs_err": float(k1_err),
+         "launches_continuous": {
+             "text8": cont_text8["continuous"]["launches"]["dndm_update"],
+             "ranked": cont_ranked["continuous"]["launches"]["dndm_update"],
+             "sweep": csweep["launches"]["dndm_update"]},
          **t["dndm_update"], "at_k32000": tz["dndm_update"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
          "launches": counts["flash_attention"], "max_abs_err": k2_err,
+         "launches_continuous": {
+             "text8": cont_text8["continuous"]["launches"]["flash_attention"],
+             "ranked":
+             cont_ranked["continuous"]["launches"]["flash_attention"]},
          **t["flash_attention"]},
         {"name": "decode_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_scores.cu",
          "replaces": "src/repro/kernels/decode_scores/kernel.py:35",
          "launches": mt_counts["decode_scores"], "max_abs_err": k3_err,
+         "launches_continuous": {
+             "text8": cont_text8["continuous"]["launches"]["decode_scores"],
+             "ranked": cont_ranked["continuous"]["launches"]["decode_scores"],
+             "sweep": csweep["launches"]["decode_scores"]},
          **t["decode_scores"],
          "at_k32000": {**tz["decode_scores"],
                        "launches": z_counts["decode_scores"]}},
@@ -1608,6 +1975,16 @@ def main() -> int:
     print(json.dumps(mt_line))
     print(json.dumps(z_line))
     print(json.dumps({"registry_sweep": sweep}))
+    card = gpu_name_and_power()
+    print(json.dumps({"continuous_text8": {
+        "path": "dndm-text8 full width, dndm T=1000, 16 x 256 tokens, "
+                "max_batch 8, shared_tau=False", "card": card,
+        **cont_text8}}))
+    print(json.dumps({"continuous_ranked": {
+        "path": "dndm-mt full width, 8 dndm_topk + 8 dndm_c_topk T=1000, "
+                "128 tokens, prefixes 48 or 64, max_batch 8, "
+                "shared_tau=False", "card": card, **cont_ranked}}))
+    print(json.dumps({"continuous_sweep": csweep}))
     print(json.dumps({"device_kernels_per_call": dev_kernels}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,10 @@ categorically by the Gumbel-max trick (argmax of logits/temp + mask +
 Gumbel(0,1) noise), with the noise drawn from the caller's generator on
 the logits' device, so kernel and plain version give bitwise-identical
 tokens for the same noise, and the two ops give the same tokens.
+
+A rolling batch of independent requests (continuous serving,
+``samplers/stepwise.py``) draws its slab row by row from each request's
+own generator: :func:`row_gumbel_noise` and :func:`row_uniform`.
 """
 from __future__ import annotations
 
@@ -32,6 +36,45 @@ def gumbel_noise(generator: torch.Generator, shape,
                    dtype=torch.float32)
     u.clamp_(min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def row_gumbel_noise(sources, shape, device=None) -> torch.Tensor:
+    """(B, *shape) f32 Gumbel slab of a rolling batch, row i from
+    ``sources[i]``: a ``torch.Generator`` (draws a ``shape`` uniform, the
+    same numbers :func:`gumbel_noise` draws for ``(1, *shape)`` from that
+    state), a tensor (an injected ``shape`` Gumbel slab, copied) or None
+    (a free row: zeros in, finite noise out, no generator advanced).
+
+    One ``rand`` per drawing row, then one clamp/log/neg chain over the
+    whole slab: drawing rows + 5 launches, element for element the solo
+    slab."""
+    slab = (torch.empty if all(isinstance(s, torch.Generator)
+                               for s in sources) else torch.zeros)(
+        (len(sources), *shape), dtype=torch.float32, device=device)
+    for i, s in enumerate(sources):
+        if isinstance(s, torch.Generator):
+            torch.rand(shape, generator=s, out=slab[i])
+    slab.clamp_(min=torch.finfo(torch.float32).tiny)
+    slab.log_().neg_().log_().neg_()
+    for i, s in enumerate(sources):
+        if isinstance(s, torch.Tensor):
+            slab[i].copy_(s.reshape(shape))
+    return slab
+
+
+def row_uniform(sources, n: int, device=None) -> torch.Tensor:
+    """(B, n) f32 uniforms on [0, 1), row i from ``sources[i]`` as in
+    :func:`row_gumbel_noise` (an injected row is an (n,) uniform); the
+    same numbers a solo ``torch.rand((1, n))`` draws from that state."""
+    u = (torch.empty if all(isinstance(s, torch.Generator) for s in sources)
+         else torch.zeros)((len(sources), n), dtype=torch.float32,
+                           device=device)
+    for i, s in enumerate(sources):
+        if isinstance(s, torch.Generator):
+            torch.rand((n,), generator=s, out=u[i])
+        elif isinstance(s, torch.Tensor):
+            u[i].copy_(s.reshape(n))
+    return u
 
 
 def _gumbel(generator, shape, x0_mode: str, device) -> torch.Tensor | None:

@@ -10,8 +10,9 @@ The 12 methods of the JAX package: the DNDM methods on the
 ``dndm_update`` kernel (``dndm``, ``dndm2``, ``dndm_static``), the
 confidence-ranked ones on the ``decode_scores`` kernel (``dndm_topk*``,
 ``dndm_c*``, ``rdm*``, ``mask_predict``, ``ddim``) and ``d3pm``, which
-decodes without a kernel.  Call schedules and stepwise steps come with
-continuous serving.
+decodes without a kernel.  Every method also exposes its call schedule
+and a row-resumable step (``samplers/stepwise.py``), so the whole
+registry serves through ``ContinuousScheduler``.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import dataclasses
 from typing import Any, Callable
 
 from repro_torch.core.samplers import (d3pm, ddim, dndm, dndm_continuous,
-                                       dndm_topk, mask_predict, rdm)
+                                       dndm_topk, mask_predict, rdm,
+                                       stepwise)
 from repro_torch.core.samplers.base import SamplerConfig, SamplerOutput
 
 BOTH = frozenset({"absorbing", "multinomial"})
@@ -55,6 +57,16 @@ class SamplerSpec:
     data-dependent.  ``kind="scan"`` — a static time grid, NFE fixed by
     the grid and known up front (``static_nfe``).
     ``run(generator, rt, batch, N, cond, draws)``.
+
+    ``schedule_fn(generator, rt, N, draws) -> CallSchedule`` exposes the
+    method's predetermined call schedule as data, known at admission.
+    ``stepwise_step(state, tau, t_row, calls, cond, rt) -> state``
+    advances each row of a rolling batch by one entry of its own schedule
+    (``samplers/stepwise.py``); every method registers both, so every
+    method serves continuously.  ``continuous_time`` marks the methods whose call
+    times are timestamps in (0, 1] (the DNDM-C family): the stepwise
+    runner then keeps f32 time and tau buffers and parks free rows at 2.0
+    instead of T + 1.
     """
 
     name: str
@@ -64,6 +76,9 @@ class SamplerSpec:
     knobs: frozenset = frozenset()                # method-specific knobs
     noise_kinds: frozenset = BOTH
     description: str = ""
+    schedule_fn: Callable[..., Any] | None = None
+    stepwise_step: Callable[..., Any] | None = None
+    continuous_time: bool = False
 
 
 _REGISTRY: dict[str, SamplerSpec] = {}
@@ -74,6 +89,9 @@ def register(spec: SamplerSpec) -> SamplerSpec:
         raise ValueError(f"{spec.name}: kind must be host|scan")
     if spec.kind == "scan" and spec.static_nfe is None:
         raise ValueError(f"{spec.name}: scan samplers need a static_nfe rule")
+    if spec.schedule_fn is None or spec.stepwise_step is None:
+        raise ValueError(f"{spec.name}: every sampler needs a schedule_fn "
+                         "and a stepwise_step (continuous serving)")
     if spec.name in _REGISTRY:
         raise ValueError(f"sampler {spec.name!r} already registered")
     _REGISTRY[spec.name] = spec
@@ -199,48 +217,68 @@ _TAU = frozenset({"order", "shared_tau", "beta"})
 
 register(SamplerSpec(
     "dndm", "host", _dndm(1), knobs=_TAU,
+    schedule_fn=stepwise.dndm_plan,
+    stepwise_step=stepwise.dndm_stepwise(1),
     description="Algorithm 1: faithful host loop, NFE = |unique tau|"))
 register(SamplerSpec(
     "dndm2", "host", _dndm(2), knobs=_TAU,
+    schedule_fn=stepwise.dndm_plan,
+    stepwise_step=stepwise.dndm_stepwise(2),
     description="Algorithm 3: keep refreshing revealed tokens (tau >= t)"))
 register(SamplerSpec(
     "dndm_topk", "host", _dndm_topk, knobs=_TAU,
+    schedule_fn=stepwise.dndm_plan,
+    stepwise_step=stepwise.dndm_topk_stepwise,
     description="Algorithm 4: confidence-ranked reveal, same NFE as Alg 1"))
 register(SamplerSpec(
     "dndm_static", "scan", _dndm_static, static_nfe=_static_grid_nfe,
     knobs=_TAU | {"nfe_budget"},
+    schedule_fn=stepwise.static_grid_plan,
+    stepwise_step=stepwise.dndm_stepwise(1),
     description="quantile-bucketized Alg 1: fixed NFE"))
 register(SamplerSpec(
     "dndm_topk_static", "scan", _dndm_topk_static,
     static_nfe=_static_grid_nfe, knobs=_TAU | {"nfe_budget"},
+    schedule_fn=stepwise.static_grid_plan,
+    stepwise_step=stepwise.dndm_topk_stepwise,
     description="quantile-bucketized Alg 4: fixed NFE"))
 register(SamplerSpec(
     "dndm_c", "scan", _dndm_c(False), static_nfe=lambda rt, N: N,
-    knobs=_TAU, description="Algorithm 2: continuous time, NFE = N"))
+    knobs=_TAU, schedule_fn=stepwise.continuous_plan,
+    stepwise_step=stepwise.dndm_c_stepwise(False), continuous_time=True,
+    description="Algorithm 2: continuous time, NFE = N"))
 register(SamplerSpec(
     "dndm_c_topk", "scan", _dndm_c(True), static_nfe=lambda rt, N: N,
-    knobs=_TAU,
+    knobs=_TAU, schedule_fn=stepwise.continuous_plan,
+    stepwise_step=stepwise.dndm_c_stepwise(True), continuous_time=True,
     description="Algorithm 2 + confidence-ranked reveal, NFE = N"))
 register(SamplerSpec(
     "d3pm", "scan", _d3pm, static_nfe=lambda rt, N: rt.steps,
-    knobs=frozenset({"steps"}),
+    knobs=frozenset({"steps"}), schedule_fn=stepwise.full_grid_plan,
+    stepwise_step=stepwise.d3pm_stepwise,
     description="D3PM ancestral baseline, NFE = T"))
 register(SamplerSpec(
     "rdm", "scan", _rdm(False), static_nfe=lambda rt, N: rt.steps,
-    knobs=frozenset({"steps"}),
+    knobs=frozenset({"steps"}), schedule_fn=stepwise.full_grid_plan,
+    stepwise_step=stepwise.rdm_stepwise(False),
     description="RDM baseline (uniform routing), NFE = T"))
 register(SamplerSpec(
     "rdm_k", "scan", _rdm(True), static_nfe=lambda rt, N: rt.steps,
-    knobs=frozenset({"steps"}),
+    knobs=frozenset({"steps"}), schedule_fn=stepwise.full_grid_plan,
+    stepwise_step=stepwise.rdm_stepwise(True),
     description="RDM-k baseline (top-k routing), NFE = T"))
 register(SamplerSpec(
     "mask_predict", "scan", _mask_predict,
     static_nfe=lambda rt, N: rt.steps, knobs=frozenset({"steps"}),
     noise_kinds=frozenset({"absorbing"}),
+    schedule_fn=stepwise.full_grid_plan,
+    stepwise_step=stepwise.mask_predict_stepwise,
     description="Mask-Predict iterative refinement, NFE = M"))
 register(SamplerSpec(
     "ddim", "scan", _ddim,
     static_nfe=lambda rt, N: -(-rt.steps // rt.ddim_stride),
     knobs=frozenset({"steps", "ddim_stride"}),
     noise_kinds=frozenset({"multinomial"}),
+    schedule_fn=stepwise.ddim_grid_plan,
+    stepwise_step=stepwise.ddim_stepwise,
     description="discrete DDIM baseline, NFE = ceil(T / stride)"))

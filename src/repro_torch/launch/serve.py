@@ -30,7 +30,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--ckpt", default="",
                     help="JAX checkpoint (.npz + .json manifest)")
-    ap.add_argument("--method", default="dndm", choices=registry.names(),
+    ap.add_argument("--method", default="dndm_topk_static",
+                    choices=registry.names(),
                     help="sampler (from the registry); ddim needs "
                          "--noise-kind multinomial, mask_predict absorbing")
     ap.add_argument("--noise-kind", default="absorbing",

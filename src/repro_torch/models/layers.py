@@ -105,9 +105,11 @@ class TimeEmbed(nn.Module):
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         half = self.d // 2
-        # f32 throughout, as the JAX package computes it
+        # f32 throughout, as the JAX package computes it.  ``step`` stays a
+        # 0-dim CPU tensor, which a CUDA product takes as a scalar: copying
+        # it to the card would synchronise host and device on every call
         step = (torch.log(torch.tensor(10_000.0, dtype=torch.float32))
-                / max(half - 1, 1)).to(t.device)
+                / max(half - 1, 1))
         freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
                                         device=t.device) * step)
         ang = t.float()[:, None] * freqs[None, :] * 1000.0

@@ -6,16 +6,19 @@ Every sampler is dispatched through ``repro_torch.core.samplers.registry``
 ``cond={"prefix_tokens": src}``: the model feeds [src | x_t] with
 bidirectional attention and returns target logits.
 
-A request is seeded by an integer: ``generate`` builds a fresh
-``torch.Generator`` on the engine's device from it, so the same seed
-replays the same run.  Telemetry (the JAX package's ``repro.obs``
-metrics) and the row-resumable ``StepwiseRunner`` come with later slices.
+A request is seeded by an integer: ``generate`` and ``plan_request``
+build a fresh ``torch.Generator`` on the engine's device from it, so the
+same seed replays the same run, solo or as one row of a
+:class:`StepwiseRunner` (the rolling batch of continuous serving).
+Telemetry (the JAX package's ``repro.obs`` metrics and spans) comes with
+a later slice: a gap, not a divergence.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import device as device_lib
@@ -23,6 +26,7 @@ from repro_torch.core import schedules as sched_lib
 from repro_torch.core import transition as trans_lib
 from repro_torch.core.noise import NoiseDist, absorbing, multinomial
 from repro_torch.core.samplers import SamplerConfig, SamplerOutput, registry
+from repro_torch.core.samplers.stepwise import CallSchedule, to_device
 
 
 @dataclasses.dataclass
@@ -165,3 +169,171 @@ class GenerationEngine:
         out.aux["compile_seconds"] = (max(0.0, warm_wall - wall)
                                       if missed else 0.0)
         return out, wall
+
+    def plan_request(self, seed: int, N: int, method: str | None = None,
+                     draws=None) -> CallSchedule:
+        """The request's predetermined call schedule, known at admission.
+
+        Drawing tau (and x_T) from the request's generator determines every
+        network call it will make before sampling starts; the plan keeps
+        the generator for the per-call draws, so a runner row replays
+        ``generate(seed, 1, N, method=...)``.  ``draws`` replaces the
+        random draws as in :meth:`generate`, with per-call (N, K) Gumbel
+        slabs and (N,) uniforms; the serving path never passes it.
+        """
+        m = method or self.cfg.method
+        spec = self.check_method(m)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        with torch.inference_mode():
+            return spec.schedule_fn(gen, self.runtime(), N, draws)
+
+    def stepwise(self, rows: int, N: int, method: str | None = None,
+                 prefix_len: int = 0) -> "StepwiseRunner":
+        """A row-resumable runner: ``rows`` request slots of length ``N``,
+        advanced one own-schedule step per batched call.  ``prefix_len >
+        0`` makes it a conditional runner: every admitted request carries
+        a prefix of exactly that length."""
+        return StepwiseRunner(self, method or self.cfg.method, rows, N,
+                              prefix_len=prefix_len)
+
+
+class StepwiseRunner:
+    """Fixed-shape rolling batch of row-resumable requests.
+
+    ``rows`` slots share every network call; each occupied slot holds a
+    request's :class:`CallSchedule` and a pointer into it.  Each
+    :meth:`step` is ONE network call that advances *every* live row by one
+    entry of its own schedule: rows sit at different diffusion times and
+    draw their noise from their own generators, so each request's
+    trajectory is its solo batch-of-one run whenever the denoiser is
+    batch-shape-invariant.  Free slots are parked at a sentinel time
+    outside every schedule (T + 1, or 2.0 in continuous time) and gated out
+    in every row step; a slot is re-admittable as soon as its request
+    completes.
+
+    ``prefix_len > 0`` makes the runner conditional: a ``(rows,
+    prefix_len)`` prefix buffer is fed to the denoiser as
+    ``cond={"prefix_tokens": ...}``; free rows hold the noise pad token.
+    Rows are never padded, which keeps solo parity.
+
+    The buffers (x, revealed, tau, prefix) live on the engine's device.
+    Completed rows are harvested inside :meth:`step` with one
+    device-to-host copy, before any later call can touch the buffer, so
+    results are exactly-once.  ``calls`` counts this runner's network
+    calls; each also counts in ``engine.network_calls``.
+    """
+
+    def __init__(self, engine: GenerationEngine, method: str, rows: int,
+                 N: int, prefix_len: int = 0):
+        spec = engine.check_method(method)
+        self.engine = engine
+        self.method = method
+        self.spec = spec
+        self.rt = engine.runtime()
+        self.rows = rows
+        self.N = N
+        self.prefix_len = prefix_len
+        dev = engine.device
+        if spec.continuous_time:
+            # timestamps lie in (0, 1]; 2.0 is past every schedule
+            self._t_dtype, self._t_free = np.float32, 2.0
+            tau_dtype = torch.float32
+        else:
+            self._t_dtype, self._t_free = np.int32, self.rt.dist.T + 1
+            tau_dtype = torch.int32
+        with torch.inference_mode():
+            self.x = torch.zeros((rows, N), dtype=torch.int32, device=dev)
+            self.revealed = torch.zeros((rows, N), dtype=torch.bool,
+                                        device=dev)
+            self.tau = torch.zeros((rows, N), dtype=tau_dtype, device=dev)
+            self.prefix = (torch.full((rows, prefix_len),
+                                      engine.noise.pad_id, dtype=torch.int32,
+                                      device=dev) if prefix_len else None)
+        self._plans: list[CallSchedule | None] = [None] * rows
+        self._ptr = [0] * rows
+        self.calls = 0
+
+    def free_rows(self) -> list[int]:
+        return [i for i in range(self.rows) if self._plans[i] is None]
+
+    def active_rows(self) -> list[int]:
+        return [i for i in range(self.rows) if self._plans[i] is not None]
+
+    def admit(self, row: int, plan: CallSchedule,
+              prefix: np.ndarray | None = None) -> None:
+        """Install a request's plan into a free slot (any step boundary)."""
+        self.admit_many([(row, plan)], None if prefix is None else [prefix])
+
+    def admit_many(self, pairs: list[tuple[int, CallSchedule]],
+                   prefixes: list[np.ndarray] | None = None) -> None:
+        """Install several plans with one scatter per buffer.
+
+        ``tau`` is required by the tau-consuming methods (the DNDM family)
+        and ignored by the baselines.  ``prefixes`` (aligned with
+        ``pairs``) is required iff the runner has ``prefix_len > 0``.  A
+        plan is admitted once: its generator has state.
+        """
+        if not pairs:
+            return
+        if bool(prefixes) != bool(self.prefix_len):
+            raise ValueError(
+                "conditional runner needs one prefix per admission"
+                if self.prefix_len else
+                "unconditional runner cannot admit prefixes")
+        for row, plan in pairs:
+            if self._plans[row] is not None:
+                raise ValueError(f"row {row} is occupied")
+            if plan.admitted:
+                raise ValueError("plan already admitted; a plan's generator "
+                                 "is consumed by its run")
+        dev = self.engine.device
+        with torch.inference_mode():
+            idx = to_device(np.array([row for row, _ in pairs]), dev)
+            self.x.index_copy_(0, idx, torch.stack(
+                [p.x0.reshape(self.N) for _, p in pairs]))
+            self.revealed.index_fill_(0, idx, False)
+            self.tau.index_copy_(0, idx, torch.stack([
+                torch.zeros_like(self.tau[0]) if p.tau is None
+                else p.tau.reshape(self.N).to(self.tau.dtype)
+                for _, p in pairs]))
+            if self.prefix_len:
+                pre = np.stack([np.asarray(p, np.int32).reshape(
+                    self.prefix_len) for p in prefixes])
+                self.prefix.index_copy_(0, idx, to_device(pre, dev))
+        for row, plan in pairs:
+            plan.admitted = True
+            self._plans[row] = plan
+            self._ptr[row] = 0
+
+    def step(self) -> dict[int, np.ndarray]:
+        """One batched network call; returns the tokens of the rows that
+        finished, by row."""
+        active = self.active_rows()
+        if not active:
+            return {}
+        t_row = np.full((self.rows,), self._t_free, self._t_dtype)
+        calls: list[tuple[CallSchedule, int] | None] = [None] * self.rows
+        for i in active:
+            plan = self._plans[i]
+            t_row[i] = plan.times[self._ptr[i]]
+            calls[i] = (plan, self._ptr[i])
+        cond = (None if self.prefix is None
+                else {"prefix_tokens": self.prefix})
+        with torch.inference_mode():
+            state = self.spec.stepwise_step(
+                {"x": self.x, "revealed": self.revealed}, self.tau, t_row,
+                calls, cond, self.rt)
+        self.x, self.revealed = state["x"], state["revealed"]
+        self.calls += 1
+        self.engine.network_calls += 1
+        done: dict[int, np.ndarray] = {}
+        finished = [i for i in active
+                    if self._ptr[i] + 1 == len(self._plans[i].times)]
+        # one device-to-host copy of the whole buffer
+        host_x = self.x.cpu().numpy() if finished else None
+        for i in active:
+            self._ptr[i] += 1
+            if i in finished:
+                done[i] = host_x[i].copy()
+                self._plans[i] = None
+        return done

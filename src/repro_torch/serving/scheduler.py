@@ -1,11 +1,22 @@
-"""Drain-mode request scheduler.
+"""Request schedulers: drain-mode batching and continuous NFE-aware
+batching.
 
-:class:`BatchScheduler` groups requests by method into fixed-shape
-power-of-two batch buckets, and each batch runs a whole sampler
-trajectory before the next starts.  Each batch's seed is drawn from a
-``torch.Generator`` seeded with the scheduler's ``seed``, so a drain is
-reproducible.  The continuous NFE-aware scheduler comes with a later
-slice.
+* :class:`BatchScheduler` — drain mode: requests are grouped by method
+  into fixed-shape power-of-two batch buckets, and each batch runs a
+  whole sampler trajectory before the next starts.  With independent
+  per-request tau sets a batch walks the *union* of its rows' transition
+  times.
+* :class:`ContinuousScheduler` — continuous mode: ``submit()`` plans the
+  request's call schedule at once (``engine.plan_request``), and a
+  rolling :class:`~repro_torch.serving.engine.StepwiseRunner` admits
+  requests into free rows at any step boundary.  Each batched call
+  advances every live row by one entry of its own schedule, so no row
+  pays for a step where it has no transition.
+
+Seeds (a batch's in drain mode, a request's in continuous mode) are
+drawn from a ``torch.Generator`` seeded with the scheduler's ``seed``, so
+a run is reproducible.  The JAX package's request ids and ``scheduler.*``
+telemetry come with the port's telemetry: a gap, not a divergence.
 """
 from __future__ import annotations
 
@@ -16,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.serving.engine import GenerationEngine
+from repro_torch.serving.engine import GenerationEngine, StepwiseRunner
 
 
 @dataclasses.dataclass
@@ -36,9 +47,25 @@ class Request:
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_done: float = 0.0
-    # the batch's seed: engine.generate(seed, bucket, bucket_len, ...)
-    # replays the batch this request was served in
+    # drain mode: the batch's seed, engine.generate(seed, bucket,
+    # bucket_len, ...) replays the batch this request was served in;
+    # continuous mode: the request's own seed, engine.generate(seed, 1,
+    # bucket_len, method=...) replays it solo
     seed: int | None = None
+    # continuous mode: the predetermined call schedule (set at submit)
+    plan: object | None = None
+    steps_executed: int = 0
+    steps_skipped: int = 0
+
+
+def _check_device(engine: GenerationEngine, device) -> None:
+    dev = device_lib.resolve(device)
+    if dev != engine.device:
+        raise ValueError(f"scheduler on {dev}, engine on {engine.device}")
+
+
+def _draw_seed(gen: torch.Generator) -> int:
+    return int(torch.randint(0, 2 ** 62, (1,), generator=gen))
 
 
 class BatchScheduler:
@@ -50,9 +77,7 @@ class BatchScheduler:
 
     def __init__(self, engine: GenerationEngine, max_batch: int = 8,
                  bucket_len: int = 64, seed: int = 0, *, device=None):
-        dev = device_lib.resolve(device)
-        if dev != engine.device:
-            raise ValueError(f"scheduler on {dev}, engine on {engine.device}")
+        _check_device(engine, device)
         self.engine = engine
         self.max_batch = max_batch
         self.bucket_len = bucket_len
@@ -118,8 +143,7 @@ class BatchScheduler:
                 for i, r in enumerate(batch):
                     pre[i, P - len(r.prefix):] = r.prefix
                 cond = {"prefix_tokens": torch.as_tensor(pre, device=dev)}
-            seed = int(torch.randint(0, 2 ** 62, (1,),
-                                     generator=self._seeds))
+            seed = _draw_seed(self._seeds)
             t_admit = time.time()
             out, wall = self.engine.generate(seed, B, N, cond=cond, method=m)
             toks = out.tokens.cpu().numpy()
@@ -136,4 +160,149 @@ class BatchScheduler:
                 r.t_done = t_done
                 r.seed = seed
                 self.done[r.rid] = r
+        return self.done
+
+
+class ContinuousScheduler:
+    """Continuous NFE-aware batching over rolling stepwise batches.
+
+    ``submit()`` plans the request at once (``engine.plan_request`` under
+    the request's own seed), so the scheduler knows every network call the
+    request will make before it is admitted.  A
+    :class:`~repro_torch.serving.engine.StepwiseRunner` holds up to
+    ``max_batch`` in-flight rows; :meth:`pump` admits queued requests into
+    free rows at the current step boundary (no drain barrier) and makes
+    one batched network call advancing every live row along its own
+    schedule.  A request's ``steps_skipped`` (T - |unique tau|) counts the
+    grid steps its schedule proved unnecessary, and ``total_calls`` (the
+    aggregate NFE) is what the batched calls cost.
+
+    Each request's tokens are its solo ``engine.generate(request.seed, 1,
+    bucket_len, method=...)`` run whenever the denoiser is
+    batch-shape-invariant (``samplers/stepwise.py`` has the contract).
+
+    Requests are grouped by (method, prefix length): conditional requests
+    get a conditional runner per exact prefix length, so prefixes are never
+    padded.  Groups with work are served round-robin, one pump each in
+    first-arrival order, so a steady stream of one group cannot starve
+    another.  ``device`` (``None`` means ``cuda``, which must exist) must
+    be the engine's device.
+    """
+
+    def __init__(self, engine: GenerationEngine, max_batch: int = 8,
+                 bucket_len: int = 64, seed: int = 0, *, device=None):
+        _check_device(engine, device)
+        self.engine = engine
+        self.max_batch = max_batch
+        self.bucket_len = bucket_len
+        self.queue: list[Request] = []
+        self.done: dict[int, Request] = {}
+        self._rid = 0
+        self._seeds = torch.Generator().manual_seed(seed)
+        # group = (method, prefix_len); 0 = unconditional
+        self._runners: dict[tuple, StepwiseRunner] = {}
+        self._rotation: list[tuple] = []    # groups in first-seen order
+        self._rr = 0                        # round-robin cursor
+        self._row_req: dict[tuple, Request] = {}  # (group, row) -> request
+        self.total_calls = 0        # aggregate NFE: batched network calls
+
+    def submit(self, length: int, prefix: np.ndarray | None = None,
+               method: str | None = None) -> int:
+        """Enqueue a request; its call schedule is drawn *now*."""
+        if length > self.bucket_len:
+            raise ValueError(f"length {length} > bucket_len "
+                             f"{self.bucket_len}")
+        method = method or self.engine.cfg.method
+        self.engine.check_method(method)
+        self._rid += 1
+        if prefix is not None:
+            prefix = np.asarray(prefix, np.int32).reshape(-1)
+        r = Request(self._rid, length, prefix, method)
+        r.seed = _draw_seed(self._seeds)
+        r.plan = self.engine.plan_request(r.seed, self.bucket_len, method)
+        r.t_submit = time.time()
+        self.queue.append(r)
+        return self._rid
+
+    @staticmethod
+    def _group(r: Request) -> tuple:
+        return (r.method, 0 if r.prefix is None else len(r.prefix))
+
+    def _runner(self, group: tuple) -> StepwiseRunner:
+        if group not in self._runners:
+            method, prefix_len = group
+            self._runners[group] = self.engine.stepwise(
+                self.max_batch, self.bucket_len, method,
+                prefix_len=prefix_len)
+        return self._runners[group]
+
+    def _admit(self, group: tuple) -> None:
+        """Move queued requests of ``group`` into its free rows, FIFO."""
+        runner = self._runner(group)
+        free = runner.free_rows()
+        if not free:
+            return
+        take: list[Request] = []
+        rest: list[Request] = []
+        for r in self.queue:
+            if self._group(r) == group and len(take) < len(free):
+                take.append(r)
+            else:
+                rest.append(r)
+        self.queue = rest
+        placed = list(zip(free, take))
+        runner.admit_many(
+            [(row, r.plan) for row, r in placed],
+            [r.prefix for _, r in placed] if group[1] else None)
+        t_admit = time.time()
+        for row, r in placed:
+            self._row_req[(group, row)] = r
+            r.t_admit = t_admit
+
+    def _next_group(self) -> tuple | None:
+        """The next group with work (live rows or queued requests),
+        round-robin from the cursor; new groups join the rotation in
+        first-arrival order."""
+        for r in self.queue:
+            g = self._group(r)
+            if g not in self._rotation:
+                self._rotation.append(g)
+        n = len(self._rotation)
+        for off in range(n):
+            g = self._rotation[(self._rr + off) % n]
+            runner = self._runners.get(g)
+            if ((runner is not None and runner.active_rows())
+                    or any(self._group(r) == g for r in self.queue)):
+                self._rr = (self._rr + off + 1) % n
+                return g
+        return None
+
+    def pump(self) -> bool:
+        """Serve ONE group: admit what fits, make one batched call.
+
+        Returns True while work remains (queued or in flight).  Drive it
+        from a serving loop interleaved with ``submit()``; :meth:`run`
+        pumps to completion.
+        """
+        group = self._next_group()
+        if group is None:
+            return False
+        self._admit(group)
+        finished = self._runner(group).step()
+        self.total_calls += 1
+        t_done = time.time()
+        for row, toks in finished.items():
+            r = self._row_req.pop((group, row))
+            r.result = toks[: r.length]
+            r.nfe = r.plan.nfe
+            r.steps_executed = r.plan.steps_executed
+            r.steps_skipped = r.plan.steps_skipped
+            r.t_done = t_done
+            self.done[r.rid] = r
+        return bool(self.queue or self._row_req)
+
+    def run(self) -> dict[int, Request]:
+        """Pump to completion; returns completed requests by id."""
+        while self.pump():
+            pass
         return self.done

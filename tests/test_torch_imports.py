@@ -37,7 +37,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops",
               "repro_torch.models.mamba2",
-              "repro_torch.serving.engine", "repro_torch.launch.serve",
+              "repro_torch.core.samplers.stepwise",
+              "repro_torch.serving.engine", "repro_torch.serving.scheduler",
+              "repro_torch.launch.serve",
               "repro_torch.models.convert"):
         assert m in res["modules"]
 
