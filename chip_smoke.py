@@ -123,7 +123,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      engine.generate(seed, 1, 64) (so decode_scores + a per-row where
      choose dndm_update's tokens), NFE and steps by the method's rule,
      decode_scores launched once per call of the 11 methods that decode
-     through it.
+     through it;
+ 14. telemetry (``repro_torch.obs``) off and on, in one process, on the
+     ranked tape of 12 drained and the text8 tape of 11 served
+     continuously, seeded alike: fresh engines serve both with telemetry
+     on into one trace file, which must pass the port's ``obs.schema``
+     (lines and content), with every request's ``obs.timeline`` complete
+     (one submit, admit and complete; one ``engine.stepwise`` span per
+     call of a continuous request; one ``sampler.step`` per call of a
+     drained host-sampler batch); then three same-process pairs per path
+     alternate off and on (ms per network call); tokens and NFE of every
+     serving bitwise equal; then one profiled serving per path off and
+     one on: telemetry must add no synchronising CUDA runtime call (a
+     copy to pageable host memory ends in one), and each gives its busy
+     share.
 
 The last lines are JSON: the paths, the continuous phases, the kernels, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -138,9 +151,16 @@ instantiation beside its shifted one on aligned noise and, with
 ``--parent DIR`` (an unpacked ``git archive`` of an earlier commit), that
 commit's kernel wrappers, loaded into the same process, beside these in
 alternating pairs.
+
+    python3 chip_smoke.py --measure-telemetry
+
+runs phase 14 alone on the full-width dndm-text8 and dndm-mt models with
+TELEMETRY_MEASURE_PAIRS (10) off/on pairs per path.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import re
 import statistics
@@ -170,6 +190,8 @@ from repro_torch.kernels.ssd_scan import ops as k4_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as k4_ref  # noqa: E402
 from repro_torch.models import mamba2 as mamba2_lib  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.obs import schema as obs_schema  # noqa: E402
 from repro_torch.serving import (BatchScheduler,  # noqa: E402
                                  ContinuousScheduler, EngineConfig,
                                  GenerationEngine)
@@ -242,6 +264,21 @@ DECODE_TOKENS_METHODS = frozenset({
     "dndm_topk", "dndm_topk_static", "dndm_c", "dndm_c_topk", "rdm",
     "rdm_k", "mask_predict", "ddim"})
 FUSED_METHODS = frozenset({"dndm", "dndm2", "dndm_static"})
+
+# the CUDA runtime (cuda*) and low-level (cu*) API calls that make the host
+# wait for the card
+SYNC_CALLS = frozenset({
+    "cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
+    "cudaMemcpy", "cudaMemcpy2D", "cuCtxSynchronize", "cuStreamSynchronize",
+    "cuEventSynchronize", "cuMemcpyDtoH_v2"})
+# the telemetry phase: same-process pairs per path, disabled / enabled
+TELEMETRY_PAIRS = 3
+# ... and in --measure-telemetry, which runs that phase alone
+TELEMETRY_MEASURE_PAIRS = 10
+# profiled servings of a tape per reading: one more where the profiler
+# dropped kernel events (``profile_serving``)
+PROFILE_ATTEMPTS = 2
+TRACE_DIR = ROOT / "build" / "telemetry"
 
 # continuous serving: the registry sweep on an integer-valued denoiser
 # (first wave, then a second that lands mid-flight)
@@ -916,6 +953,14 @@ def serve_tape(sched, tape, n_len: int):
     return done, submit_s, time.perf_counter() - t0
 
 
+def tape_engine(model, tape, steps: int) -> GenerationEngine:
+    """The engine the continuous phases serve a tape on: independent tau
+    sets (``shared_tau=False``), absorbing noise, Gumbel decoding."""
+    return GenerationEngine(model, EngineConfig(
+        method=tape[0][0], steps=steps, noise_kind="absorbing",
+        x0_mode="sample", shared_tau=False), device="cuda")
+
+
 def continuous_vs_drain(model, tape, n_len: int, batch: int,
                         steps: int) -> dict:
     """One tape of requests ((method, prefix) pairs) served by
@@ -927,9 +972,7 @@ def continuous_vs_drain(model, tape, n_len: int, batch: int,
     modes' aggregate NFE, req/s and ms per network call, and each mode's
     ``profile_serving`` of the same tape with its device busy share."""
     cfg = model.cfg
-    engine = GenerationEngine(model, EngineConfig(
-        method=tape[0][0], steps=steps, noise_kind="absorbing",
-        x0_mode="sample", shared_tau=False), device="cuda")
+    engine = tape_engine(model, tape, steps)
     rt = engine.runtime()
     # the rows decode through decode_scores; a drain batch of the DNDM
     # methods through dndm_update
@@ -1017,9 +1060,10 @@ def continuous_vs_drain(model, tape, n_len: int, batch: int,
         "ms_per_network_call": 1e3 * timed_wall / timed_nfe,
         "launches": dcounts}
     res["calls_drain_over_continuous"] = timed_nfe / calls
-    for mode, make, want in (("continuous", continuous, calls),
-                             ("drain", drain_sched, timed_nfe)):
-        prof = profile_serving(make(), tape, n_len)
+    for mode, make, want, ref in (
+            ("continuous", continuous, calls, outputs(done)),
+            ("drain", drain_sched, timed_nfe, outputs(ddone))):
+        prof = profile_serving(make, tape, n_len, ref)
         if prof["calls"] != want:
             raise AssertionError(f"profiled {mode} serving made "
                                  f"{prof['calls']} calls, the timed {want}")
@@ -1029,8 +1073,8 @@ def continuous_vs_drain(model, tape, n_len: int, batch: int,
     return res
 
 
-def profile_serving(sched, tape, n_len: int) -> dict:
-    """Serve ``tape`` once more on ``sched``, a fresh scheduler seeded as
+def profile_serving(make, tape, n_len: int, ref: list) -> dict:
+    """Serve ``tape`` once more on ``make()``, a fresh scheduler seeded as
     the timed one (so it makes the same network calls), under
     torch.profiler with CUDA activity: the device's kernels, copies and
     fills, and the host's CUDA API calls (``cuda*``, ``cu*``).  Per network
@@ -1040,32 +1084,54 @@ def profile_serving(sched, tape, n_len: int) -> dict:
     arithmetic); ``runtime_ms``, the wall time inside them (launching
     and copying, and waiting for the card: synchronisations, copies to
     the host, launches into a full queue); ``ms``, the profiled wall,
-    above the timed run's by the profiler's own cost.  The profile must
-    hold one kernel for each launch that the port's kernel wrappers
-    counted (a trace that dropped events fails)."""
+    above the timed run's by the profiler's own cost; ``syncs``, the
+    runtime calls that make the host wait for the card (stream, device
+    and event synchronisations, blocking copies), and ``dtoh``, the
+    device-to-host copies, per call, and their totals.  The served tokens
+    and NFE must be bitwise ``ref`` (the timed serving's ``outputs``), and
+    the profile must hold one kernel for each launch that the port's
+    kernel wrappers counted.  The profiler now and then loses an event
+    (on an H100, once one ``dndm_update`` of a text8 drain's 1,749, the
+    tokens right), so a trace that lacks kernels is taken once more on a fresh
+    scheduler, and a second such trace fails; ``dropped`` lists the
+    kernels each incomplete trace lacked."""
     from torch.profiler import ProfilerActivity, profile
-    engine = sched.engine
-    calls0 = engine.network_calls
-    reset_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve_tape(sched, tape, n_len)
-    calls = engine.network_calls - calls0
-    counted = read_counts(engine)
-    device_ns, launches, spans = 0, 0, []
-    traced = dict.fromkeys(PROFILED_KERNELS, 0)
-    for e in prof.profiler.kineto_results.events():
-        if str(e.device_type()).endswith("CUDA"):
-            device_ns += e.duration_ns()
-            launches += 1
-            for k, stem in PROFILED_KERNELS.items():
-                traced[k] += stem in e.name()
-        elif e.name().startswith("cu"):
-            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
-    if not spans or any(traced[k] != counted[k] for k in traced):
+    dropped = []
+    for _ in range(PROFILE_ATTEMPTS):
+        sched = make()
+        engine = sched.engine
+        calls0 = engine.network_calls
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            done, _, wall = serve_tape(sched, tape, n_len)
+        calls = engine.network_calls - calls0
+        counted = read_counts(engine)
+        if not same_outputs(outputs(done), ref):
+            raise AssertionError("profiled serving: tokens or NFE differ "
+                                 "from the timed serving's")
+        device_ns, launches, spans, syncs, dtoh = 0, 0, [], 0, 0
+        traced = dict.fromkeys(PROFILED_KERNELS, 0)
+        for e in prof.profiler.kineto_results.events():
+            if str(e.device_type()).endswith("CUDA"):
+                device_ns += e.duration_ns()
+                launches += 1
+                dtoh += e.name().startswith("Memcpy DtoH")
+                for k, stem in PROFILED_KERNELS.items():
+                    traced[k] += stem in e.name()
+            elif e.name().startswith("cu"):
+                spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+                syncs += e.name() in SYNC_CALLS
+        lacks = {k: counted[k] - traced[k] for k in traced
+                 if traced[k] != counted[k]}
+        if spans and not lacks:
+            break
+        dropped.append(lacks)
+    else:
         raise AssertionError(
             f"profile of {calls} calls: {len(spans)} runtime calls, "
             f"kernels {traced} against the launches counted "
-            f"{ {k: counted[k] for k in traced} }")
+            f"{ {k: counted[k] for k in traced} }; earlier traces lacked "
+            f"{dropped[:-1]}")
     runtime_ns, reach = 0, 0          # the union of the (nested) calls
     for start, end in sorted(spans):
         runtime_ns += max(0, end - max(start, reach))
@@ -1074,7 +1140,195 @@ def profile_serving(sched, tape, n_len: int) -> dict:
             "device_ms": device_ns / 1e6 / calls,
             "launches": launches / calls,
             "host_ms": (1e3 * wall - runtime_ns / 1e6) / calls,
-            "runtime_ms": runtime_ns / 1e6 / calls}
+            "runtime_ms": runtime_ns / 1e6 / calls,
+            "syncs": syncs / calls, "dtoh": dtoh / calls,
+            "sync_calls": syncs, "dtoh_copies": dtoh, "dropped": dropped}
+
+
+def outputs(done) -> list:
+    """(NFE, tokens) of each finished request, in request order."""
+    return [(done[rid].nfe, done[rid].result) for rid in sorted(done)]
+
+
+def same_outputs(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        na == nb and (ta == tb).all() for (na, ta), (nb, tb) in zip(a, b))
+
+
+@contextlib.contextmanager
+def telemetry_on(path: Path):
+    """Telemetry on and empty, every record sunk to ``path``, the final
+    metrics record last; off again after."""
+    obs.reset()
+    obs.tracing.clear()
+    obs.enable()
+    obs.set_sink(str(path))
+    try:
+        yield
+        obs.tracing.close_sink(final_metrics=True)
+    finally:
+        obs.tracing.close_sink()
+        obs.disable()
+
+
+def traced_serving(sched, tape, n_len: int, path: Path | None):
+    """Serve ``tape`` on ``sched`` with telemetry off (``path`` None) or on,
+    sunk to ``path``; returns (finished requests, ms per network call,
+    calls)."""
+    engine = sched.engine
+    calls0 = engine.network_calls
+    with (contextlib.nullcontext() if path is None else telemetry_on(path)):
+        done, submit_s, wall = serve_tape(sched, tape, n_len)
+    calls = engine.network_calls - calls0
+    return done, 1e3 * (wall - submit_s) / calls, calls
+
+
+def check_timelines(path: Path, done, mode: str) -> int:
+    """Every request's timeline in the trace at ``path``: one submit, one
+    admit and one complete of its own; continuous, one ``engine.stepwise``
+    span per call of its own; drain, its batch's ``engine.generate`` span
+    with one ``sampler.step`` per call for the host samplers.  Returns the
+    records the timelines held."""
+    n = 0
+    for r in done.values():
+        tl = obs.timeline(r.request_id, path=str(path))
+        own = [x["name"] for x in tl
+               if x["attrs"].get("request_id") == r.request_id]
+        if own != ["scheduler.submit", "scheduler.admit",
+                   "scheduler.complete"]:
+            raise AssertionError(f"{mode} {r.request_id}: lifecycle {own}")
+        names = [x["name"] for x in tl]
+        if mode == "continuous":
+            want = {"engine.stepwise": r.nfe}
+        else:
+            host = registry.get(r.method).kind == "host"
+            want = {"engine.generate": 1,
+                    "sampler.step": r.nfe if host else 0}
+        for name, k in want.items():
+            if names.count(name) != k:
+                raise AssertionError(f"{mode} {r.request_id}: "
+                                     f"{names.count(name)} {name}, want {k}")
+        n += len(tl)
+    return n
+
+
+def telemetry_paths(text8_model, mt_model) -> dict:
+    """The telemetry phase's paths: name -> (model, tape, n_len, batch,
+    steps, mode): the ranked tape drained and the text8 tape served
+    continuously, as phases 12 and 11 serve them."""
+    return {"ranked_drain": (mt_model, ranked_tape(), MT_LEN, MT_BATCH, MT_T,
+                             "drain"),
+            "text8_continuous": (text8_model, [("dndm", None)] * MAIN_REQUESTS,
+                                 MAIN_LEN, MAIN_BATCH, MAIN_T, "continuous")}
+
+
+def telemetry_phase(paths: dict, pairs: int = TELEMETRY_PAIRS) -> dict:
+    """Telemetry off and on, in one process, per path of ``paths``
+    (``telemetry_paths``); every serving of a path is seeded alike, so it
+    makes the same calls.
+
+    1. Fresh engines serve every path once with telemetry on into one
+       trace file (their cold keys in it): the file must pass the port's
+       ``obs.schema`` (``validate_trace_lines``,
+       ``validate_trace_content``) and every request's timeline must be
+       complete.
+    2. On those (now warm) engines, ``pairs`` same-process pairs per path
+       alternate off and on (off-on, on-off, ...), every enabled serving
+       writing a trace: ms per network call of each; tokens and NFE of
+       every serving, off and on, bitwise those of 1.
+    3. Two profiled servings per path, off then on (the on one with a
+       sink): the on one's synchronising runtime calls must not outnumber
+       the off one's (no new sync; device-to-host copies reported beside
+       them); device time over the pairs' mean ms per call gives each busy
+       share."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "serving.jsonl"
+    path.unlink(missing_ok=True)
+    engines, out, ref = {}, {}, {}
+
+    def scheduler(name):
+        model, tape, n_len, batch, steps, mode = paths[name]
+        cls = ContinuousScheduler if mode == "continuous" else BatchScheduler
+        return cls(engines[name], max_batch=batch, bucket_len=n_len,
+                   seed=0, device="cuda")
+
+    done = {}
+    with telemetry_on(path):
+        for name, (model, tape, n_len, batch, steps, mode) in paths.items():
+            engines[name] = tape_engine(model, tape, steps)
+            done[name], _, _ = serve_tape(scheduler(name), tape, n_len)
+            ref[name] = outputs(done[name])
+    with open(path) as f:
+        records = obs_schema.validate_trace_lines(f)
+    obs_schema.validate_trace_content(records)
+    for name in paths:
+        out[name] = {"requests": len(done[name]),
+                     "timeline_records": check_timelines(
+                         path, done[name], paths[name][5])}
+    trace = {"records": len(records),
+             "spans": sum(r["kind"] == "span" for r in records),
+             "events": sum(r["kind"] == "event" for r in records),
+             "bytes": path.stat().st_size}
+
+    for name, (model, tape, n_len, batch, steps, mode) in paths.items():
+        ms = {"off": [], "on": []}
+        for pair in range(pairs):
+            order = ("off", "on") if pair % 2 == 0 else ("on", "off")
+            for state in order:
+                p = TRACE_DIR / f"{name}-{pair}.jsonl" if state == "on" \
+                    else None
+                done, ms_call, calls = traced_serving(scheduler(name), tape,
+                                                      n_len, p)
+                if not same_outputs(outputs(done), ref[name]):
+                    raise AssertionError(f"{name} pair {pair} ({state}): "
+                                         "tokens or NFE changed")
+                if p is not None:
+                    with open(p) as f:
+                        obs_schema.validate_trace_lines(f)
+                    p.unlink()
+                ms[state].append(ms_call)
+        make = functools.partial(scheduler, name)
+        prof = {"off": profile_serving(make, tape, n_len, ref[name])}
+        p = TRACE_DIR / f"{name}-profile.jsonl"
+        with telemetry_on(p):
+            prof["on"] = profile_serving(make, tape, n_len, ref[name])
+        p.unlink()
+        if prof["on"]["calls"] != prof["off"]["calls"]:
+            raise AssertionError(f"{name}: profiled {prof['on']['calls']} "
+                                 f"calls on, {prof['off']['calls']} off")
+        # a copy to pageable host memory ends in a stream sync, so the
+        # runtime calls count it; the copies' device events are reported
+        # only, as a profile can miss a few of them
+        if prof["on"]["sync_calls"] > prof["off"]["sync_calls"]:
+            raise AssertionError(f"{name}: telemetry adds synchronising "
+                                 f"runtime calls: {prof['on']['sync_calls']} "
+                                 f"against {prof['off']['sync_calls']}")
+        mean = {k: statistics.fmean(v) for k, v in ms.items()}
+        out[name].update({
+            "calls": calls, "ms_per_network_call": ms, "mean_ms": mean,
+            "on_over_off": mean["on"] / mean["off"],
+            "on_faster_pairs": sum(a < b for a, b in zip(ms["on"],
+                                                         ms["off"])),
+            "device_busy_share": {k: prof[k]["device_ms"] / mean[k]
+                                  for k in prof},
+            **{f"{field}_per_call": {k: prof[k][field] for k in prof}
+               for field in ("syncs", "dtoh", "host_ms", "runtime_ms",
+                             "device_ms", "launches", "ms")},
+            "sync_calls": {k: prof[k]["sync_calls"] for k in prof},
+            "dtoh_copies": {k: prof[k]["dtoh_copies"] for k in prof},
+            "dropped": {k: prof[k]["dropped"] for k in prof}})
+    return {"pairs": pairs, "trace": trace, **out}
+
+
+def measure_telemetry() -> int:
+    """--measure-telemetry: the telemetry phase alone on the full-width
+    dndm-text8 and dndm-mt models, with TELEMETRY_MEASURE_PAIRS pairs per
+    path."""
+    models = [Model(configs_lib.get(a).replace(attn_impl="pallas"),
+                    device="cuda", seed=0) for a in ("dndm-text8", "dndm-mt")]
+    res = telemetry_phase(telemetry_paths(*models), TELEMETRY_MEASURE_PAIRS)
+    print(json.dumps({"telemetry": {"card": gpu_name_and_power(), **res}}))
+    return 0
 
 
 def profile_run(engine, method: str, B: int, N: int, prefix_len: int = 0,
@@ -1751,6 +2005,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
+    if "--measure-telemetry" in sys.argv:
+        return measure_telemetry()
     if "--measure-decode" in sys.argv:
         return measure_decode(
             Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
@@ -1821,7 +2077,7 @@ def main() -> int:
     print(f"continuous text8: {cont_text8['continuous']['total_calls']} "
           f"calls against drain's {cont_text8['drain']['total_calls']}",
           flush=True)
-    del model, sched
+    del sched
     lap("text8_continuous")
 
     # 7. the ranked path
@@ -1847,13 +2103,26 @@ def main() -> int:
     print(f"continuous ranked: {cont_ranked['continuous']['total_calls']} "
           f"calls against drain's {cont_ranked['drain']['total_calls']}",
           flush=True)
-    del mt_model, mt_sched
+    lap("ranked_continuous")
+    # 14. telemetry off and on, same process: the ranked tape drained and
+    # the text8 tape served continuously
+    telemetry = telemetry_phase(telemetry_paths(model, mt_model))
+    for name in ("ranked_drain", "text8_continuous"):
+        t = telemetry[name]
+        print(f"telemetry {name}: ms per call off "
+              f"{t['mean_ms']['off']:.3f} on {t['mean_ms']['on']:.3f} "
+              f"(pairs {t['ms_per_network_call']}); busy "
+              f"{t['device_busy_share']}; syncs per call "
+              f"{t['syncs_per_call']}", flush=True)
+    del model, mt_model, mt_sched
+    torch.cuda.empty_cache()
+    lap("telemetry")
     # 13. every registered method served continuously vs its solo run
     csweep = continuous_sweep()
     print(f"continuous sweep: {csweep['requests']} requests of 12 methods "
           f"bitwise equal to their solo runs in {csweep['total_calls']} "
           "calls", flush=True)
-    lap("ranked_continuous_and_sweep")
+    lap("continuous_sweep")
 
     # 8b. the zamba2 path
     z_model, z_sched, z_done, z_drain_s, z_counts = main_path(
@@ -1985,6 +2254,11 @@ def main() -> int:
                 "128 tokens, prefixes 48 or 64, max_batch 8, "
                 "shared_tau=False", "card": card, **cont_ranked}}))
     print(json.dumps({"continuous_sweep": csweep}))
+    print(json.dumps({"telemetry": {
+        "paths": "ranked tape drained (dndm-mt full width, T=1000, "
+                 "shared_tau=False) and text8 tape served continuously "
+                 "(dndm-text8 full width, T=1000, shared_tau=False)",
+        "card": card, **telemetry}}))
     print(json.dumps({"device_kernels_per_call": dev_kernels}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,11 @@ tokens for the same noise, and the two ops give the same tokens.
 A rolling batch of independent requests (continuous serving,
 ``samplers/stepwise.py``) draws its slab row by row from each request's
 own generator: :func:`row_gumbel_noise` and :func:`row_uniform`.
+
+With telemetry on, every decode counts in ``decode.backend_calls`` (labels
+``op`` and ``backend``: ``kernel`` for CUDA tensors, ``reference`` for the
+plain version on CPU tensors), once per call: the JAX package counts at
+trace time, once per compiled program.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import functools
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.decode_scores import ops as _sops
 from repro_torch.kernels.dndm_update import ops as _ops
 
@@ -85,6 +91,20 @@ def _gumbel(generator, shape, x0_mode: str, device) -> torch.Tensor | None:
     return gumbel_noise(generator, shape, device)
 
 
+def backend(device) -> str:
+    """The decode backend that tensors on ``device`` take: the CUDA
+    kernels on a card, their plain versions on the CPU."""
+    return "kernel" if torch.device(device).type == "cuda" else "reference"
+
+
+def _count(op: str, logits: torch.Tensor) -> None:
+    if obs.enabled():
+        obs.counter("decode.backend_calls",
+                    "decode calls by op and backend, once per call (the "
+                    "JAX package counts once per compiled program)").inc(
+            op=op, backend=backend(logits.device))
+
+
 @functools.lru_cache(maxsize=32)
 def _logit_mask(noise, device: torch.device) -> torch.Tensor:
     return noise.logit_mask(torch.float32, device)
@@ -102,6 +122,7 @@ def fused_update(logits: torch.Tensor, x: torch.Tensor, tau: torch.Tensor,
     ``gumbel`` overrides the noise drawn from ``generator`` (sample mode
     only) — the tests replay the JAX package's draws through it.
     """
+    _count("fused_update", logits)
     mask = _logit_mask(noise, logits.device)
     if gumbel is None:
         gumbel = _gumbel(generator, logits.shape, cfg.x0_mode, logits.device)
@@ -123,6 +144,7 @@ def decode_tokens(logits: torch.Tensor, noise, cfg, *,
     overrides the noise drawn from ``generator`` (sample mode only), as in
     :func:`fused_update`.
     """
+    _count("decode_tokens", logits)
     mask = _logit_mask(noise, logits.device)
     if gumbel is None:
         gumbel = _gumbel(generator, logits.shape, cfg.x0_mode, logits.device)

@@ -22,7 +22,7 @@ DenoiseFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 class SamplerOutput(NamedTuple):
     tokens: torch.Tensor   # (B, N) final x_0
     nfe: int               # network calls actually made for this batch
-    aux: dict              # diagnostics
+    aux: dict              # trace / diagnostics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +31,7 @@ class SamplerConfig:
 
     x0_mode: str = "sample"        # "sample" | "argmax"
     temperature: float = 1.0
+    trace: bool = False            # record intermediate states (dndm)
 
 
 def select_x0(logits: torch.Tensor, noise: NoiseDist, cfg: SamplerConfig,

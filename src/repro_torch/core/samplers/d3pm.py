@@ -52,5 +52,5 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
             gumbel = gumbel_noise(generator, p.shape, x.device)
         return (gumbel + torch.log(p + 1e-30)).argmax(-1).to(torch.int32)
 
-    x = loop.host_loop(range(T, 0, -1), x, step, gumbels)
+    x = loop.scan_loop(range(T, 0, -1), x, step, gumbels)
     return SamplerOutput(tokens=x, nfe=T, aux={})

@@ -54,5 +54,5 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
         keep = u < float(np.clip(sigma, 0, 1))
         return torch.where(keep, x, x0_hat)
 
-    x = loop.host_loop(ts, x, step, gumbels, uniforms)
+    x = loop.scan_loop(ts, x, step, gumbels, uniforms)
     return SamplerOutput(tokens=x, nfe=len(ts), aux={})

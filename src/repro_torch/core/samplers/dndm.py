@@ -5,7 +5,12 @@
     so the host knows the unique-time set before any network call and
     the network runs exactly ``|T|`` times.  NFE is data-dependent,
     exactly as in the paper.  One host sync per request (tau -> unique
-    times); none per step.
+    times); none per step.  With telemetry on, the per-step reveal
+    counts |R_t| come from that host copy of tau (``aux["reveal_counts"]``,
+    the ``sampler.reveal_count`` histogram and each ``sampler.step``
+    event's ``reveal``); ``SamplerConfig.trace`` keeps every
+    intermediate state in ``aux["trace"]``, one device-to-host copy per
+    step, as the JAX package does.
   * ``sample_static`` — transition times bucketized onto ``nfe_budget``
     quantiles of D_tau, so the NFE is fixed; as nfe_budget -> |T| this
     converges to Algorithm 1.
@@ -20,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import decode
 from repro_torch.core.noise import NoiseDist
 from repro_torch.core.samplers import loop
@@ -55,11 +61,34 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
     # Predetermined: the whole schedule of network calls is known *now*.
     tau_np = tau.cpu().numpy()
     times = loop.unique_times(tau_np)                          # descending
+    trace = []
+    aux = {"tau": tau, "trace": trace, "times": times}
+    step_attrs = reveal_telemetry(tau_np, times, aux, "dndm", version)
     step = _step_fn(denoise_fn, noise, cfg, tau, cond, version, dist.T,
                     batch, device, generator)
-    x = loop.host_loop(times, x, step, gumbels)
-    return SamplerOutput(tokens=x, nfe=len(times),
-                         aux={"tau": tau, "times": times})
+    on_step = ((lambda x: trace.append(x.cpu().numpy()))
+               if cfg.trace else None)
+    x = loop.host_loop(times, x, step, gumbels, on_step=on_step,
+                       step_attrs=step_attrs)
+    return SamplerOutput(tokens=x, nfe=len(times), aux=aux)
+
+
+def reveal_telemetry(tau_np, times, aux: dict, sampler: str,
+                     version: int = 1):
+    """With telemetry on, the per-step reveal counts |R_t| of a host walk
+    over ``times``, from the host copy of tau: stored in
+    ``aux["reveal_counts"]``, observed in ``sampler.reveal_count``, and
+    returned as the ``step_attrs`` of :func:`loop.host_loop`.  None (and
+    nothing computed) with telemetry off."""
+    if not obs.enabled():
+        return None
+    reveals = loop.reveal_series(tau_np, times, version=version)
+    aux["reveal_counts"] = reveals
+    hist = obs.histogram("sampler.reveal_count",
+                         "tokens revealed per network call (|R_t|)")
+    for r in reveals:
+        hist.observe(float(r), sampler=sampler, version=version)
+    return lambda i, t: {"reveal": float(reveals[i])}
 
 
 def quantile_grid(dist: TransitionDist, nfe_budget: int) -> np.ndarray:
@@ -106,6 +135,6 @@ def sample_static(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
     tau_b = bucketize(tau, grid)
     step = _step_fn(denoise_fn, noise, cfg, tau_b, cond, version, dist.T,
                     batch, device, generator)
-    x = loop.host_loop(grid[::-1], x, step, gumbels)
+    x = loop.scan_loop(grid[::-1], x, step, gumbels)
     return SamplerOutput(tokens=x, nfe=len(grid),
                          aux={"tau": tau, "grid": grid})

@@ -57,5 +57,5 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
         upd = positions == tok_idx[:, None]
         return torch.where(upd, x0_hat, x), revealed | upd
 
-    x, _ = loop.host_loop(range(N), (x, revealed), step, gumbels)
+    x, _ = loop.scan_loop(range(N), (x, revealed), step, gumbels)
     return SamplerOutput(tokens=x, nfe=N, aux={"tau": tau})

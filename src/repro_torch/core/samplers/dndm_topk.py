@@ -14,6 +14,8 @@ CUDA kernel on the card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import decode
@@ -25,9 +27,10 @@ from repro_torch.core.transition import TransitionDist
 
 
 def _walk(times, tau, x, denoise_fn, noise, cfg, cond, T, generator,
-          gumbels):
-    """Call the network at each of ``times`` (descending) and reveal the
-    top-scoring tokens up to ``K_{t-1} = #{n : tau_n >= t}`` per row."""
+          gumbels, walk=loop.scan_loop):
+    """Call the network at each of ``times`` (descending) by ``walk`` and
+    reveal the top-scoring tokens up to ``K_{t-1} = #{n : tau_n >= t}``
+    per row."""
     batch = x.shape[0]
     revealed = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
 
@@ -40,7 +43,7 @@ def _walk(times, tau, x, denoise_fn, noise, cfg, cond, T, generator,
                                              gumbel=gumbel)
         return loop.reveal_topk(x, x0_hat, score, revealed, k_target)
 
-    x, _ = loop.host_loop(times, (x, revealed), step, gumbels)
+    x, _ = walk(times, (x, revealed), step, gumbels)
     return x
 
 
@@ -48,15 +51,22 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
            dist: TransitionDist, batch: int, N: int, cond=None,
            cfg: SamplerConfig = SamplerConfig(), order: str = "iid",
            shared_tau: bool = True, device=None, draws=None) -> SamplerOutput:
-    """Algorithm 4 — host loop, NFE = |unique tau| as in Algorithm 1."""
+    """Algorithm 4 — host loop, NFE = |unique tau| as in Algorithm 1.
+
+    Algorithm 4 reveals as many tokens per step as Algorithm 1 would
+    (K_{t-1} - K_t = #(tau == t)), so its telemetry reports Algorithm 1's
+    reveal counts, from the host copy of tau."""
     tau, x, gumbels, _ = loop.setup(generator, noise, batch, N, dist=dist,
                                     order=order, shared=shared_tau,
                                     device=device, draws=draws)
-    times = loop.unique_times(tau.cpu().numpy())              # descending
+    tau_np = tau.cpu().numpy()
+    times = loop.unique_times(tau_np)                         # descending
+    aux = {"tau": tau, "times": times}
+    step_attrs = dndm.reveal_telemetry(tau_np, times, aux, "dndm_topk")
     x = _walk(times, tau, x, denoise_fn, noise, cfg, cond, dist.T,
-              generator, gumbels)
-    return SamplerOutput(tokens=x, nfe=len(times),
-                         aux={"tau": tau, "times": times})
+              generator, gumbels,
+              functools.partial(loop.host_loop, step_attrs=step_attrs))
+    return SamplerOutput(tokens=x, nfe=len(times), aux=aux)
 
 
 def sample_static(generator, denoise_fn: DenoiseFn, noise: NoiseDist,

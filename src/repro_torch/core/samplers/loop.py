@@ -2,10 +2,19 @@
 
 Draw the predetermined transition-time set and x_T ~ q_noise, then walk
 time backwards calling the denoiser: a host loop over the data-dependent
-unique transition times (Algorithms 1, 3 and 4) or over a static grid
-(the methods the JAX package runs as one ``lax.scan``).  A host loop over
-a known grid is the port's form of that scan; CUDA-graph capture of it
-comes later.
+unique transition times (:func:`host_loop`, Algorithms 1, 3 and 4: the
+registry's ``host`` kind) or over a static grid (:func:`scan_loop`, the
+methods the JAX package runs as one ``lax.scan``: the ``scan`` kind).  A
+host loop over a known grid is the port's form of that scan; CUDA-graph
+capture of it comes later.
+
+The host loop is the telemetry anchor for DNDM's headline claim, as in
+the JAX package: with ``repro_torch.obs`` enabled it records per-step
+host time (``sampler.step_seconds``) and emits one ``sampler.step`` event
+per network call, with whatever the sampler supplies via ``step_attrs``
+(the DNDM samplers pass the per-step reveal count |R_t|).  The time is
+the host's dispatch time: steps are not synchronised, so telemetry adds
+no device sync.  The scan loop emits nothing, as a compiled scan cannot.
 
 Every random draw comes from one ``torch.Generator``, in a fixed order:
 tau, then x_T, then per network call the Gumbel slab of the decode (or of
@@ -19,11 +28,13 @@ never passes it.
 """
 from __future__ import annotations
 
-from typing import Callable
+import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.samplers.base import init_noise_tokens
 from repro_torch.core.transition import sample_transition_times
 
@@ -93,13 +104,42 @@ def reveal_series(tau, times, version: int = 1) -> np.ndarray:
     return cmp.sum(axis=-2).mean(axis=0)
 
 
-def host_loop(times, carry, step: Callable, *per_call):
-    """Host-driven walk: ``carry = step(carry, t, *draws_i)`` per time,
+def scan_loop(times, carry, step: Callable, *per_call):
+    """Walk a static grid: ``carry = step(carry, t, *draws_i)`` per time,
     where ``draws_i`` holds entry ``i`` of each injected per-call list in
     ``per_call`` (None for a list that is None)."""
     for i, t in enumerate(times):
         carry = step(carry, int(t),
                      *(None if d is None else d[i] for d in per_call))
+    return carry
+
+
+def host_loop(times, carry, step: Callable, *per_call,
+              on_step: Callable | None = None,
+              step_attrs: Callable[[int, Any], dict] | None = None):
+    """Host-driven walk over the predetermined unique transition times,
+    as :func:`scan_loop`, plus telemetry when enabled.  ``step_attrs(i,
+    t)`` supplies extra attributes for the per-step event and is never
+    called on the disabled path; ``on_step(carry)`` runs after each
+    step."""
+    enabled = obs.enabled()
+    if not enabled and on_step is None:
+        return scan_loop(times, carry, step, *per_call)
+    if enabled:
+        hist = obs.histogram(
+            "sampler.step_seconds",
+            "host-side dispatch seconds per host-loop step (no sync)")
+    for i, t in enumerate(times):
+        t0 = time.perf_counter()
+        carry = step(carry, int(t),
+                     *(None if d is None else d[i] for d in per_call))
+        if enabled:
+            dt = time.perf_counter() - t0
+            hist.observe(dt, loop="host")
+            extra = step_attrs(i, t) if step_attrs is not None else {}
+            obs.event("sampler.step", i=i, t=t, dur_s=dt, **extra)
+        if on_step is not None:
+            on_step(carry)
     return carry
 
 

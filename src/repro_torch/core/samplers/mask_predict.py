@@ -44,5 +44,5 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
         remask = torch.argsort(order, dim=-1, stable=True) < n_mask
         return torch.where(remask, noise.mask_id, x0_hat)
 
-    x = loop.host_loop(range(M), x, step, gumbels)
+    x = loop.scan_loop(range(M), x, step, gumbels)
     return SamplerOutput(tokens=x, nfe=M, aux={})

@@ -55,6 +55,6 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
             score = u
         return loop.reveal_topk(x, x0_hat, score, denoised, k_target)
 
-    x, _ = loop.host_loop(range(T, 0, -1), (x, denoised), step, gumbels,
+    x, _ = loop.scan_loop(range(T, 0, -1), (x, denoised), step, gumbels,
                           uniforms)
     return SamplerOutput(tokens=x, nfe=T, aux={})

@@ -40,9 +40,7 @@ it.  A free row draws nothing and advances no generator.  Gathers at the
 sentinel (``alphas[T + 1]``) are clamped explicitly; the gate discards
 their values.
 
-A plan is consumed once: its generator has state.  The JAX package's
-``request_id`` and telemetry spans are not ported yet (they come with the
-port's telemetry), a gap, not a divergence.
+A plan is consumed once: its generator has state.
 """
 from __future__ import annotations
 
@@ -74,6 +72,12 @@ class CallSchedule:
     Injected draws (``draws=``, the tests' replay of the JAX package's
     streams) replace what they supply, as in ``engine.generate``:
     ``gumbels`` one (N, K) slab and ``uniforms`` one (N,) array per call.
+
+    ``request_id`` is the serving-layer trace identity: the scheduler sets
+    the id minted at ``submit()``, and every batched ``engine.stepwise``
+    span lists the ids of the rows it advanced, so that one trace file
+    rebuilds a request's calls (``obs.timeline``).  ``schedule_fn``
+    implementations leave it None.
     """
 
     times: np.ndarray                      # descending call times
@@ -84,6 +88,7 @@ class CallSchedule:
     gumbels: list | None = None            # injected per-call slabs
     uniforms: list | None = None           # injected per-call uniforms
     admitted: bool = False                 # set by StepwiseRunner.admit
+    request_id: str | None = None          # trace identity (scheduler-set)
 
     @property
     def nfe(self) -> int:

@@ -6,7 +6,9 @@ synthetic requests.
         --requests 16 --len 256 --steps 1000
 
 Runs on ``cuda`` unless ``--device`` names another device; without a GPU
-and without ``--device`` it raises.
+and without ``--device`` it raises.  With ``REPRO_TRACE=path.jsonl`` the
+trace ends with the final metrics record, so that
+``python -m repro_torch.obs.schema path.jsonl`` can check it.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import time
 
 import repro_torch.configs as configs_lib
 from repro_torch import device as device_lib
+from repro_torch import obs
 from repro_torch.core.samplers import registry
 from repro_torch.models import convert
 from repro_torch.models.model import Model
@@ -74,6 +77,8 @@ def main(argv=None):
     nfe = sum(r.nfe for r in done.values())
     print(f"{len(done)} requests in {wall:.2f}s "
           f"({len(done) / wall:.2f} req/s), total NFE {nfe} on {dev}")
+    if obs.tracing.sink_path() is not None:
+        obs.tracing.close_sink(final_metrics=True)
     return done
 
 

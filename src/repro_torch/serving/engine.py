@@ -10,8 +10,11 @@ A request is seeded by an integer: ``generate`` and ``plan_request``
 build a fresh ``torch.Generator`` on the engine's device from it, so the
 same seed replays the same run, solo or as one row of a
 :class:`StepwiseRunner` (the rolling batch of continuous serving).
-Telemetry (the JAX package's ``repro.obs`` metrics and spans) comes with
-a later slice: a gap, not a divergence.
+
+With ``repro_torch.obs`` enabled, every ``generate`` is an
+``engine.generate`` span feeding the ``engine.*`` metrics, and every
+runner call an ``engine.stepwise`` span, with the JAX package's names and
+attributes.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import obs
+from repro_torch.core import decode as decode_lib
 from repro_torch.core import schedules as sched_lib
 from repro_torch.core import transition as trans_lib
 from repro_torch.core.noise import NoiseDist, absorbing, multinomial
@@ -149,17 +154,49 @@ class GenerationEngine:
         same seed — identical output — so that kernel build and load and
         cuBLAS initialisation do not land in the timed run; that one-time
         cost is ``aux["compile_seconds"]`` (0.0 on a warm key).
+
+        With ``repro_torch.obs`` enabled, every call is an
+        ``engine.generate`` span (method/kind/batch/seq + nfe/wall/cache/
+        backend) and feeds the ``engine.*`` metrics; the warm-up runs
+        with telemetry suppressed, so a cold key records its steps once.
+        ``REPRO_TORCH_PROFILE=dir`` also writes a ``torch.profiler``
+        trace of the call.
         """
         m = method or self.cfg.method
         spec = self.check_method(m)
         rt = self.runtime()
+        with obs.span("engine.generate", method=m, kind=spec.kind,
+                      batch=batch, seq=N) as sp, obs.maybe_profile():
+            out, wall, cache = self._run(spec, m, seed, rt, batch, N, cond,
+                                         draws)
+            if obs.enabled():
+                compile_s = out.aux["compile_seconds"]
+                obs.counter("engine.requests").inc(method=m, kind=spec.kind)
+                obs.counter("engine.nfe").inc(out.nfe, method=m)
+                obs.counter("engine.tokens").inc(batch * N, method=m)
+                obs.histogram("engine.wall_seconds").observe(wall, method=m)
+                # observed on every miss: the CPU's warm-up can run as
+                # fast as the timed run, which clamps the estimate to 0
+                if cache == "miss":
+                    obs.histogram("engine.compile_seconds").observe(
+                        compile_s, method=m, kind=spec.kind)
+                sp.set(nfe=out.nfe, wall_s=wall, compile_s=compile_s,
+                       cache=cache, backend=decode_lib.backend(self.device))
+        return out, wall
+
+    def _run(self, spec, m: str, seed: int, rt, batch: int, N: int, cond,
+             draws) -> tuple[SamplerOutput, float, str]:
+        """Run one request; returns (out, steady wall, "hit" | "miss")."""
         ck = self._cache_key(m, batch, N, rt, cond)
         missed = ck not in self._warm
         warm_wall = 0.0
         if missed:
             self._sync()
             tc = time.perf_counter()
-            self._execute(spec, seed, rt, batch, N, cond, draws)
+            # the warm-up repeats the timed run below; recording it would
+            # count its steps, reveals and decodes twice
+            with obs.suppressed():
+                self._execute(spec, seed, rt, batch, N, cond, draws)
             warm_wall = time.perf_counter() - tc
             self._warm.add(ck)
         self._sync()
@@ -168,7 +205,11 @@ class GenerationEngine:
         wall = time.perf_counter() - t0
         out.aux["compile_seconds"] = (max(0.0, warm_wall - wall)
                                       if missed else 0.0)
-        return out, wall
+        # the JAX package's jit cache is the counterpart of the warm keys
+        obs.counter("engine.jit_cache.misses" if missed
+                    else "engine.jit_cache.hits").inc(method=m,
+                                                      kind=spec.kind)
+        return out, wall, ("miss" if missed else "hit")
 
     def plan_request(self, seed: int, N: int, method: str | None = None,
                      draws=None) -> CallSchedule:
@@ -307,7 +348,13 @@ class StepwiseRunner:
 
     def step(self) -> dict[int, np.ndarray]:
         """One batched network call; returns the tokens of the rows that
-        finished, by row."""
+        finished, by row.
+
+        With telemetry on, every call is an ``engine.stepwise`` span whose
+        ``request_ids`` attribute lists the trace identity of each row the
+        call advanced (comma-joined): the per-call backbone of
+        ``obs.timeline(request_id)``.
+        """
         active = self.active_rows()
         if not active:
             return {}
@@ -319,13 +366,20 @@ class StepwiseRunner:
             calls[i] = (plan, self._ptr[i])
         cond = (None if self.prefix is None
                 else {"prefix_tokens": self.prefix})
-        with torch.inference_mode():
-            state = self.spec.stepwise_step(
-                {"x": self.x, "revealed": self.revealed}, self.tau, t_row,
-                calls, cond, self.rt)
-        self.x, self.revealed = state["x"], state["revealed"]
+        rids = (",".join(p.request_id for i in active
+                         if (p := self._plans[i]).request_id is not None)
+                if obs.enabled() else "")
+        with obs.span("engine.stepwise", method=self.method,
+                      call=self.calls, rows=len(active), request_ids=rids):
+            with torch.inference_mode():
+                state = self.spec.stepwise_step(
+                    {"x": self.x, "revealed": self.revealed}, self.tau,
+                    t_row, calls, cond, self.rt)
+            self.x, self.revealed = state["x"], state["revealed"]
         self.calls += 1
         self.engine.network_calls += 1
+        if obs.enabled():
+            obs.counter("engine.stepwise_calls").inc(method=self.method)
         done: dict[int, np.ndarray] = {}
         finished = [i for i in active
                     if self._ptr[i] + 1 == len(self._plans[i].times)]

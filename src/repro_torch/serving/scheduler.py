@@ -15,19 +15,36 @@ batching.
 
 Seeds (a batch's in drain mode, a request's in continuous mode) are
 drawn from a ``torch.Generator`` seeded with the scheduler's ``seed``, so
-a run is reproducible.  The JAX package's request ids and ``scheduler.*``
-telemetry come with the port's telemetry: a gap, not a divergence.
+a run is reproducible.
+
+Every request gets a trace identity at ``submit()``
+(:func:`mint_request_id`); with ``repro_torch.obs`` enabled both
+schedulers emit the JAX package's ``scheduler.*`` events, spans and
+metrics under it, and score each completed request against the SLO
+budgets (``obs.slo``), so ``obs.timeline(request_id)`` rebuilds a
+request's submit → admission → per-call → completion history.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import obs
+from repro_torch.obs import slo as slo_lib
 from repro_torch.serving.engine import GenerationEngine, StepwiseRunner
+
+# process-wide request-id mint: ids stay unique across scheduler
+# instances so one trace file can hold several schedulers' requests
+_next_request_id = itertools.count(1).__next__
+
+
+def mint_request_id() -> str:
+    return f"req-{_next_request_id():06d}"
 
 
 @dataclasses.dataclass
@@ -56,6 +73,9 @@ class Request:
     plan: object | None = None
     steps_executed: int = 0
     steps_skipped: int = 0
+    # trace identity, minted at submit(): every span and event of the
+    # request carries it
+    request_id: str = ""
 
 
 def _check_device(engine: GenerationEngine, device) -> None:
@@ -98,7 +118,11 @@ class BatchScheduler:
                              f"{self.bucket_len}")
         self._rid += 1
         req = Request(self._rid, length, prefix, method)
+        req.request_id = mint_request_id()
         req.t_submit = time.time()
+        if obs.enabled():
+            obs.event("scheduler.submit", request_id=req.request_id,
+                      method=method, length=length, mode="drain")
         self.queue.append(req)
         return self._rid
 
@@ -127,7 +151,11 @@ class BatchScheduler:
         batch_wall / batch_size``) plus the batch totals.
         """
         dev = self.engine.device
+        pending = len(self.queue)
         for batch in self._buckets():
+            if obs.enabled():
+                obs.gauge("scheduler.queue_depth").set(pending)
+            pending -= len(batch)
             # pad the batch dim to the bucket; padded rows are generated
             # and sliced off below
             B = self.batch_bucket(len(batch))
@@ -145,7 +173,29 @@ class BatchScheduler:
                 cond = {"prefix_tokens": torch.as_tensor(pre, device=dev)}
             seed = _draw_seed(self._seeds)
             t_admit = time.time()
-            out, wall = self.engine.generate(seed, B, N, cond=cond, method=m)
+            rids = ",".join(r.request_id for r in batch)
+            with obs.span("scheduler.batch", method=m, requests=len(batch),
+                          bucket=B, request_ids=rids) as sp:
+                if obs.enabled():
+                    for r in batch:
+                        obs.event("scheduler.admit",
+                                  request_id=r.request_id, method=m,
+                                  mode="drain",
+                                  queue_s=t_admit - r.t_submit)
+                out, wall = self.engine.generate(seed, B, N, cond=cond,
+                                                 method=m)
+                if obs.enabled():
+                    obs.counter("scheduler.batches").inc(method=m)
+                    obs.counter("scheduler.requests").inc(len(batch),
+                                                          method=m)
+                    obs.counter("scheduler.padded_rows").inc(B - len(batch),
+                                                             method=m)
+                    obs.histogram("scheduler.occupancy").observe(
+                        len(batch) / B, method=m)
+                    obs.histogram("scheduler.batch_wall_seconds").observe(
+                        wall, method=m)
+                    sp.set(wall_s=wall, padded_rows=B - len(batch),
+                           occupancy=len(batch) / B)
             toks = out.tokens.cpu().numpy()
             share = wall / len(batch)
             t_done = time.time()
@@ -159,6 +209,18 @@ class BatchScheduler:
                 r.t_admit = t_admit
                 r.t_done = t_done
                 r.seed = seed
+                if obs.enabled():
+                    obs.histogram("scheduler.queue_latency_seconds").observe(
+                        t_admit - r.t_submit, mode="drain")
+                    obs.histogram("scheduler.service_seconds").observe(
+                        t_done - t_admit, mode="drain")
+                    obs.event("scheduler.complete",
+                              request_id=r.request_id, method=r.method,
+                              mode="drain", nfe=r.nfe,
+                              service_s=t_done - t_admit)
+                    slo_lib.observe_request(
+                        r.method, latency_s=t_done - t_admit,
+                        queue_s=t_admit - r.t_submit, nfe=r.nfe)
                 self.done[r.rid] = r
         return self.done
 
@@ -218,9 +280,16 @@ class ContinuousScheduler:
         if prefix is not None:
             prefix = np.asarray(prefix, np.int32).reshape(-1)
         r = Request(self._rid, length, prefix, method)
+        r.request_id = mint_request_id()
         r.seed = _draw_seed(self._seeds)
         r.plan = self.engine.plan_request(r.seed, self.bucket_len, method)
+        # the runner reads the id back to label every call the row rides
+        r.plan.request_id = r.request_id
         r.t_submit = time.time()
+        if obs.enabled():
+            obs.event("scheduler.submit", request_id=r.request_id,
+                      method=method, length=length, mode="continuous",
+                      planned_nfe=r.plan.nfe)
         self.queue.append(r)
         return self._rid
 
@@ -242,6 +311,7 @@ class ContinuousScheduler:
         free = runner.free_rows()
         if not free:
             return
+        midflight = bool(runner.active_rows())
         take: list[Request] = []
         rest: list[Request] = []
         for r in self.queue:
@@ -258,6 +328,16 @@ class ContinuousScheduler:
         for row, r in placed:
             self._row_req[(group, row)] = r
             r.t_admit = t_admit
+            if obs.enabled():
+                obs.histogram("scheduler.queue_latency_seconds").observe(
+                    r.t_admit - r.t_submit, mode="continuous")
+                obs.event("scheduler.admit", request_id=r.request_id,
+                          method=r.method, mode="continuous", row=row,
+                          midflight=midflight,
+                          queue_s=r.t_admit - r.t_submit)
+                if midflight:
+                    obs.counter("scheduler.admissions_midflight").inc(
+                        method=r.method)
 
     def _next_group(self) -> tuple | None:
         """The next group with work (live rows or queued requests),
@@ -287,18 +367,42 @@ class ContinuousScheduler:
         group = self._next_group()
         if group is None:
             return False
-        self._admit(group)
-        finished = self._runner(group).step()
-        self.total_calls += 1
-        t_done = time.time()
-        for row, toks in finished.items():
-            r = self._row_req.pop((group, row))
-            r.result = toks[: r.length]
-            r.nfe = r.plan.nfe
-            r.steps_executed = r.plan.steps_executed
-            r.steps_skipped = r.plan.steps_skipped
-            r.t_done = t_done
-            self.done[r.rid] = r
+        with obs.span("scheduler.pump", method=group[0],
+                      prefix_len=group[1]) as sp:
+            self._admit(group)
+            runner = self._runner(group)
+            if obs.enabled():
+                obs.gauge("scheduler.queue_depth").set(len(self.queue))
+                obs.histogram("scheduler.occupancy").observe(
+                    len(runner.active_rows()) / runner.rows,
+                    method=group[0])
+                sp.set(queue_depth=len(self.queue),
+                       live_rows=len(runner.active_rows()))
+            finished = runner.step()
+            self.total_calls += 1
+            t_done = time.time()
+            for row, toks in finished.items():
+                r = self._row_req.pop((group, row))
+                r.result = toks[: r.length]
+                r.nfe = r.plan.nfe
+                r.steps_executed = r.plan.steps_executed
+                r.steps_skipped = r.plan.steps_skipped
+                r.t_done = t_done
+                if obs.enabled():
+                    obs.counter("scheduler.steps_skipped").inc(
+                        r.steps_skipped, method=r.method)
+                    obs.counter("scheduler.requests").inc(method=r.method)
+                    obs.histogram("scheduler.service_seconds").observe(
+                        t_done - r.t_admit, mode="continuous")
+                    obs.event("scheduler.complete",
+                              request_id=r.request_id, method=r.method,
+                              mode="continuous", nfe=r.nfe,
+                              steps_skipped=r.steps_skipped,
+                              service_s=t_done - r.t_admit)
+                    slo_lib.observe_request(
+                        r.method, latency_s=t_done - r.t_admit,
+                        queue_s=r.t_admit - r.t_submit, nfe=r.nfe)
+                self.done[r.rid] = r
         return bool(self.queue or self._row_req)
 
     def run(self) -> dict[int, Request]:
