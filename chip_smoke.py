@@ -136,7 +136,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      serving bitwise equal; then one profiled serving per path off and
      one on: telemetry must add no synchronising CUDA runtime call (a
      copy to pageable host memory ends in one), and each gives its busy
-     share.
+     share;
+ 15. training: full-width dndm-text8 (114.5 M parameters) from seed 0,
+     100 steps of the port's make_train_step (AdamW, warmup_cosine(3e-4,
+     20, 100), linear schedule, T = 1000, absorbing noise, the RDM loss)
+     on DataPipeline batches of 32 x 256 tokens, f32, einsum attention
+     (the JAX package's training route), TF32 off.  Checks: the steps
+     launch no kernel, every loss and parameter is finite, the mean loss
+     of the last 5 steps is below that of the first 5.  Reports ms per
+     step (median after TRAIN_WARMUP steps), tokens/s, model TFLOP/s (6 x
+     parameters x tokens plus the attention products) and its share of
+     the 67 TFLOP/s f32 peak, and max_memory_allocated, beside the card.
+     The trained weights are saved by the port's checkpoint writer,
+     loaded through the weight bridge into a fresh attn_impl="pallas"
+     model (bitwise equal to the trained ones) and served as in 6 (16 x
+     256 tokens, dndm, T = 1000) with 6's checks; the served text's mean
+     log-likelihood under the training language is reported beside that
+     of 6's untrained model.  Then MT_TRAIN_STEPS steps of full-width
+     dndm-mt on translation pairs (source prefix and target of 128
+     tokens each), the prefix branch of the train step, with the same
+     readings and checks but the loss's fall.
 
 The last lines are JSON: the paths, the continuous phases, the kernels, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -162,6 +181,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -169,6 +189,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -176,6 +197,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import repro_torch.configs as configs_lib  # noqa: E402
+from repro_torch.core import noise as noise_lib  # noqa: E402
+from repro_torch.core import schedules as sched_lib  # noqa: E402
 from repro_torch.core.decode import (gumbel_noise,  # noqa: E402
                                      row_gumbel_noise)
 from repro_torch.core.samplers import loop, registry  # noqa: E402
@@ -188,6 +211,9 @@ from repro_torch.kernels.flash_attention import ops as k2_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as k2_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as k4_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as k4_ref  # noqa: E402
+from repro_torch.data import (DataConfig, DataPipeline,  # noqa: E402
+                              MarkovLanguage)
+from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import mamba2 as mamba2_lib  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch import obs  # noqa: E402
@@ -195,6 +221,8 @@ from repro_torch.obs import schema as obs_schema  # noqa: E402
 from repro_torch.serving import (BatchScheduler,  # noqa: E402
                                  ContinuousScheduler, EngineConfig,
                                  GenerationEngine)
+from repro_torch.training import (AdamW, init_state,  # noqa: E402
+                                  make_train_step, warmup_cosine)
 
 # H100 SXM data sheet (dense): HBM rate, f32 rate outside the tensor
 # cores and TF32 rate of the tensor cores, at the full 700 W power limit.
@@ -283,6 +311,20 @@ TRACE_DIR = ROOT / "build" / "telemetry"
 # continuous serving: the registry sweep on an integer-valued denoiser
 # (first wave, then a second that lands mid-flight)
 CSWEEP_BATCH, CSWEEP_N, CSWEEP_T, CSWEEP_STRIDE = 4, 64, 50, 2
+
+# training (phase 15): full-width dndm-text8 on the launcher's recipe
+# (AdamW, warmup_cosine(3e-4, 20, steps), linear schedule, absorbing
+# noise) at batch 32, 256 tokens and T = 1000; the first TRAIN_WARMUP
+# steps are left out of the median.  Then a few steps of full-width
+# dndm-mt on translation pairs (source prefix and target of MT_TRAIN_SEQ)
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_BATCH, TRAIN_SEQ = 100, 3, 32, 256
+TRAIN_T = 1000
+TRAIN_LR, TRAIN_LR_WARMUP = 3e-4, 20
+# the last steps of each run go under torch.profiler (kernel time by
+# name), outside the median
+TRAIN_PROFILED = 2
+MT_TRAIN_STEPS, MT_TRAIN_SEQ = 8, 128
+TRAIN_CKPT = ROOT / "build" / "train" / "dndm_text8"
 
 
 def gpu_name_and_power() -> str:
@@ -562,12 +604,13 @@ def read_counts(engine) -> dict:
 
 def main_path(arch: str = "dndm-text8", n_req: int = MAIN_REQUESTS,
               n_len: int = MAIN_LEN, batch: int = MAIN_BATCH,
-              steps: int = MAIN_T):
-    """Serve ``n_req`` requests of ``arch`` with dndm through the port's
-    entry points; returns the model, the scheduler, the finished
-    requests, the drain time and the launch counts."""
-    cfg = configs_lib.get(arch).replace(attn_impl="pallas")
-    model = Model(cfg, device="cuda", seed=0)
+              steps: int = MAIN_T, model: Model | None = None):
+    """Serve ``n_req`` requests of ``arch`` (or of ``model``) with dndm
+    through the port's entry points; returns the model, the scheduler, the
+    finished requests, the drain time and the launch counts."""
+    if model is None:
+        cfg = configs_lib.get(arch).replace(attn_impl="pallas")
+        model = Model(cfg, device="cuda", seed=0)
     engine = GenerationEngine(model, EngineConfig(
         method="dndm", steps=steps, noise_kind="absorbing",
         x0_mode="sample"), device="cuda")
@@ -1320,6 +1363,150 @@ def telemetry_phase(paths: dict, pairs: int = TELEMETRY_PAIRS) -> dict:
     return {"pairs": pairs, "trace": trace, **out}
 
 
+def train_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Model FLOPs of one train step: 6 x parameters x tokens, plus the
+    attention products of every attention block (q kᵀ and p v, 4 B H S²
+    hd forward, three times that with the backward)."""
+    n_attn = sum(k in ("attn", "swa", "shared_attn")
+                 for k in cfg.block_pattern)
+    return (6.0 * n_params * B * S
+            + 12.0 * n_attn * B * cfg.n_heads * S * S * cfg.hd)
+
+
+def train_run(arch: str, task: str, steps: int, seq: int,
+              batch: int = TRAIN_BATCH, card: str = "") -> tuple:
+    """Train full-width ``arch`` from seed 0 for ``steps`` steps of the
+    port's ``make_train_step`` (f32, einsum attention, TF32 off) on
+    ``task`` batches of the port's DataPipeline; each step timed to its
+    loss on the host, the last TRAIN_PROFILED steps under torch.profiler
+    (device time, its GEMM part, launches and top kernels per step).
+    Checks: no kernel launched (the train step runs none, as in the JAX
+    package), every loss and parameter finite.  Returns the model and the
+    phase's record."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = configs_lib.get(arch)
+    if cfg.attn_impl != "einsum":
+        raise AssertionError(f"{arch} trains through attn_impl "
+                             f"{cfg.attn_impl!r}, not einsum")
+    model = Model(cfg, device="cuda", seed=0)
+    opt = AdamW(warmup_cosine(TRAIN_LR, TRAIN_LR_WARMUP, steps))
+    state = init_state(model, opt)
+    step = make_train_step(model, sched_lib.linear(TRAIN_T),
+                           noise_lib.absorbing(cfg.vocab_size), opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pipe = iter(DataPipeline(DataConfig(task=task, vocab=cfg.vocab_size - 1,
+                                        seq_len=seq, batch=batch)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, ms = [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for i in range(steps):
+        if i == steps - TRAIN_PROFILED:
+            prof.start()
+        b = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(pipe).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b, gen)
+        # the copy of the loss waits for the whole step, update included
+        losses.append(float(metrics["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    prof.stop()
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    if any(launches.values()):
+        raise AssertionError(f"{arch} train steps launched {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{arch}: a loss is not finite: {losses}")
+    for name, p in model.named_parameters():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"{arch}: parameter {name} not finite")
+    n_params = sum(p.numel() for p in model.parameters())
+    S = 2 * seq if task == "translation" else seq   # [source | target]
+    flops = train_flops(cfg, n_params, batch, S)
+    med = statistics.median(ms[TRAIN_WARMUP:steps - TRAIN_PROFILED])
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if "gemm" in e.key.lower()) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    n5 = min(5, steps // 2)
+    rec = {"arch": arch, "task": task, "steps": steps, "batch": batch,
+           "tokens_per_row": S, "T": TRAIN_T, "params": n_params,
+           "ms_per_step": med, "ms_per_step_all": ms,
+           "tokens_per_s": batch * S / (med / 1e3),
+           "model_tflop_per_step": flops / 1e12,
+           "tflop_per_s": flops / (med / 1e3) / 1e12,
+           "f32_peak_share": flops / (med / 1e3) / F32_FLOPS,
+           "max_memory_allocated_gb":
+           torch.cuda.max_memory_allocated() / 1e9,
+           "loss_first5_mean": statistics.fmean(losses[:n5]),
+           "loss_last5_mean": statistics.fmean(losses[-n5:]),
+           "profile": {
+               "steps": TRAIN_PROFILED,
+               "device_ms_per_step": dev_ms / TRAIN_PROFILED,
+               "gemm_ms_per_step": gemm_ms / TRAIN_PROFILED,
+               "launches_per_step":
+               sum(e.count for e in kernels) / TRAIN_PROFILED,
+               "device_busy_share": dev_ms / TRAIN_PROFILED / med,
+               "top_kernels": [{
+                   "kernel": e.key[:72],
+                   "ms_per_step": e.self_device_time_total / 1e3
+                   / TRAIN_PROFILED,
+                   "launches_per_step": e.count / TRAIN_PROFILED}
+                   for e in top]},
+           "losses": losses, "card": card}
+    return model, rec
+
+
+def mean_log_likelihood(done, vocab: int) -> float:
+    """The mean per-token log-likelihood of served tokens under the
+    language that ``train_run`` draws a model's data from (the JAX
+    package's quality oracle); ``vocab`` is the model's without [MASK]."""
+    toks = np.stack([done[r].result for r in sorted(done)])
+    return MarkovLanguage(vocab, seed=DataConfig().seed).log_likelihood(toks)
+
+
+def training_phase(untrained_ll: float, card: str) -> dict:
+    """Phase 15: train full-width dndm-text8; the loss must fall.  Save
+    it with the port's checkpoint writer, load it through the weight
+    bridge into a fresh attn_impl="pallas" model (bitwise), serve 16 x
+    256 tokens with dndm on the card's kernels with phase 6's checks;
+    then a few steps of full-width dndm-mt with source prefixes."""
+    model, text8 = train_run("dndm-text8", "unconditional", TRAIN_STEPS,
+                             TRAIN_SEQ, card=card)
+    if not text8["loss_last5_mean"] < text8["loss_first5_mean"]:
+        raise AssertionError(f"text8 loss did not fall: first 5 "
+                             f"{text8['loss_first5_mean']}, last 5 "
+                             f"{text8['loss_last5_mean']}")
+    convert.save_checkpoint(model, str(TRAIN_CKPT))
+    served = Model(model.cfg.replace(attn_impl="pallas"), device="cuda",
+                   seed=1)
+    convert.load_checkpoint(served, str(TRAIN_CKPT))
+    trained = dict(model.named_parameters())
+    for name, p in served.named_parameters():
+        if not torch.equal(p, trained[name].detach()):
+            raise AssertionError(f"checkpoint: {name} not bitwise the "
+                                 "trained parameter")
+    del model, trained
+    _, sched, done, drain_s, counts = main_path(model=served)
+    stats = check_main_path(served, sched, done, counts)
+    text8["served"] = {
+        "requests": len(done), "tokens_per_request": MAIN_LEN,
+        "method": "dndm", "T": MAIN_T, "launches": counts,
+        "nfe_total": stats["total_nfe"], "drain_s": drain_s,
+        "log_likelihood_trained": mean_log_likelihood(
+            done, served.cfg.vocab_size - 1),
+        "log_likelihood_untrained_seed0": untrained_ll}
+    del served, sched
+    torch.cuda.empty_cache()
+    _, mt = train_run("dndm-mt", "translation", MT_TRAIN_STEPS,
+                      MT_TRAIN_SEQ, card=card)
+    torch.cuda.empty_cache()
+    return {"text8": text8, "mt": mt}
+
+
 def measure_telemetry() -> int:
     """--measure-telemetry: the telemetry phase alone on the full-width
     dndm-text8 and dndm-mt models, with TELEMETRY_MEASURE_PAIRS pairs per
@@ -2066,6 +2253,7 @@ def main() -> int:
     model, sched, done, drain_s, counts = main_path()
     stats = check_main_path(model, sched, done, counts)
     logits_err = check_denoiser(model, MAIN_LEN)
+    untrained_ll = mean_log_likelihood(done, model.cfg.vocab_size - 1)
     print(f"main path: {counts}; full-width logits kernel vs einsum max err "
           f"{logits_err:.3g}", flush=True)
     # 10. (run here, while the model is loaded) the path under a profiler
@@ -2124,6 +2312,30 @@ def main() -> int:
           "calls", flush=True)
     lap("continuous_sweep")
 
+    # 15. training: full-width dndm-text8, its checkpoint served on the
+    # kernels; a few prefixed dndm-mt steps
+    card = gpu_name_and_power()
+    train = training_phase(untrained_ll, card)
+    for name, r in train.items():
+        print(f"training {name} ({card}): {r['ms_per_step']:.2f} ms per "
+              f"step (median of "
+              f"{r['steps'] - TRAIN_WARMUP - TRAIN_PROFILED}), "
+              f"{r['tokens_per_s']:.0f} tokens/s, {r['tflop_per_s']:.2f} "
+              f"TFLOP/s ({100 * r['f32_peak_share']:.1f}% of the f32 "
+              f"peak), peak memory {r['max_memory_allocated_gb']:.2f} GB, "
+              f"loss first 5 {r['loss_first5_mean']:.4f} last 5 "
+              f"{r['loss_last5_mean']:.4f}; profiled: device "
+              f"{r['profile']['device_ms_per_step']:.2f} ms per step, GEMMs "
+              f"{r['profile']['gemm_ms_per_step']:.2f}, busy "
+              f"{100 * r['profile']['device_busy_share']:.1f}%",
+              flush=True)
+    sv = train["text8"]["served"]
+    print(f"training: trained text8 served {sv['launches']}; mean "
+          f"log-likelihood trained {sv['log_likelihood_trained']:.3f}, "
+          f"untrained {sv['log_likelihood_untrained_seed0']:.3f}",
+          flush=True)
+    lap("training")
+
     # 8b. the zamba2 path
     z_model, z_sched, z_done, z_drain_s, z_counts = main_path(
         "zamba2-2.7b", ZAMBA_REQUESTS, ZAMBA_LEN, ZAMBA_BATCH, ZAMBA_T)
@@ -2154,6 +2366,7 @@ def main() -> int:
              "text8": cont_text8["continuous"]["launches"]["dndm_update"],
              "ranked": cont_ranked["continuous"]["launches"]["dndm_update"],
              "sweep": csweep["launches"]["dndm_update"]},
+         "launches_training": sv["launches"]["dndm_update"],
          **t["dndm_update"], "at_k32000": tz["dndm_update"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2163,6 +2376,7 @@ def main() -> int:
              "text8": cont_text8["continuous"]["launches"]["flash_attention"],
              "ranked":
              cont_ranked["continuous"]["launches"]["flash_attention"]},
+         "launches_training": sv["launches"]["flash_attention"],
          **t["flash_attention"]},
         {"name": "decode_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_scores.cu",
@@ -2259,6 +2473,7 @@ def main() -> int:
                  "shared_tau=False) and text8 tape served continuously "
                  "(dndm-text8 full width, T=1000, shared_tau=False)",
         "card": card, **telemetry}}))
+    print(json.dumps({"training": train}))
     print(json.dumps({"device_kernels_per_call": dev_kernels}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))

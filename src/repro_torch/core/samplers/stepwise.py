@@ -330,7 +330,10 @@ def _dndm_c_rows(x, revealed, tau, t_row, calls, cond, rt, topk: bool):
     """Algorithm 2 step, row-resumable in continuous time: ``t_row`` is
     the row's timestamp, passed to the denoiser raw as the solo loop
     does.  It reveals the token owning the timestamp (``tau == t``), or
-    the top-score unrevealed token for the top-k variant."""
+    the top-score unrevealed token for the top-k variant.  Timestamps
+    are a.s. distinct, but f32 draws can tie: the plan then holds the
+    time once per owner, and each call reveals the lowest-index
+    unrevealed owner, the order of the solo sampler's stable sort."""
     c = _columns(rt, t_row, t_row <= 1.0)
     logits = rt.denoise_fn(x, c[0], cond)
     x0_hat, score = _decode(logits, calls, rt)
@@ -338,7 +341,8 @@ def _dndm_c_rows(x, revealed, tau, t_row, calls, cond, rt, topk: bool):
         pick = torch.where(revealed, -torch.inf, score).argmax(-1)
         upd = torch.arange(x.shape[1], device=x.device) == pick[:, None]
     else:
-        upd = tau == c[0][:, None]
+        upd = (tau == c[0][:, None]) & ~revealed
+        upd = upd & (upd.cumsum(-1) == 1)
     upd = upd & (c[1][:, None] > 0)
     return torch.where(upd, x0_hat, x), revealed | upd
 

@@ -181,6 +181,20 @@ def inputs_agree(kernel: str, first: torch.Tensor, *others) -> None:
             raise ValueError(f"{kernel} inputs must be contiguous")
 
 
+def no_backward(kernel: str, *tensors) -> None:
+    """Raise when autograd records and one of ``tensors`` (None entries
+    skipped) requires a gradient: no kernel of the port has a backward,
+    and its output would silently cut the graph, on the card as on the
+    CPU.  Serving runs under ``torch.inference_mode``, where grad mode is
+    off, so the check ends at its first test there."""
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad
+                                       for a in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: call it under torch.no_grad() or "
+            "torch.inference_mode(), or differentiate the plain route "
+            "(attn_impl 'einsum' or 'blocked')")
+
+
 def launch(kernel: str, fn, device: int, *args) -> None:
     """Call the C entry point ``fn`` with ``args`` and, last, the raw
     handle of the current stream of CUDA device ``device`` (an index),

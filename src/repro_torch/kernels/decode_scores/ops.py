@@ -4,7 +4,9 @@
 A CUDA tensor goes to the kernel, launched on the current stream; a CPU
 tensor goes to the plain version in ``ref.py``.  Any K and any contiguous
 view (whatever its alignment) is handled in the kernel, so nothing is
-padded.  ``decode_scores.launches`` counts kernel launches.
+padded.  It raises where autograd would need a gradient through it
+(``build.no_backward``).  ``decode_scores.launches`` counts kernel
+launches.
 
 As for ``dndm_update``, the host time of this wrapper paces the decode
 at K = 28: the checks build no ``torch.device`` objects or lists, and
@@ -47,6 +49,7 @@ def decode_scores(logits, *, mask=None, gumbel=None,
         mask = torch.zeros((logits.shape[-1],), dtype=torch.float32,
                            device=logits.device)
     _check(logits, mask, gumbel)
+    build.no_backward("decode_scores", logits, mask, gumbel)
     if logits.is_cuda:
         B, N, K = logits.shape
         lib = build.library().lib

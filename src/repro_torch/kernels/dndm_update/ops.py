@@ -4,7 +4,9 @@
 A CUDA tensor goes to the kernel, launched on the current stream; a CPU
 tensor goes to the plain version in ``ref.py``.  Any K and any contiguous
 view (whatever its alignment) is handled in the kernel, so nothing is
-padded.  ``dndm_update.launches`` counts kernel launches.
+padded.  It raises where autograd would need a gradient through it
+(``build.no_backward``).  ``dndm_update.launches`` counts kernel
+launches.
 
 The kernel takes about 3 us at the paper's K = 28, so the host time of
 this wrapper paces the decode there: the checks compare shapes, dtypes
@@ -52,6 +54,7 @@ def dndm_update(logits, x, tau, t: int, *, mask=None, gumbel=None,
         mask = torch.zeros((logits.shape[-1],), dtype=torch.float32,
                            device=logits.device)
     _check(logits, x, tau, mask, gumbel, version)
+    build.no_backward("dndm_update", logits, mask, gumbel)
     if logits.is_cuda:
         B, N, K = logits.shape
         lib = build.library().lib

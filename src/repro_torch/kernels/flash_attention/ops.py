@@ -8,7 +8,10 @@ head h // (H / KV)); the mask is built in the kernel from ``causal`` and
 stream; a CPU tensor goes to the plain version in ``ref.py``.  The kernel
 stages k and v with 16-byte copies, so on the card their rows must start
 on 16-byte boundaries; a view that breaks this raises (there is no other
-route).  ``flash_attention.launches`` counts kernel launches.
+route).  It raises where autograd would need a gradient through it
+(``build.no_backward``): training attends through ``attn_impl``
+"einsum" or "blocked".  ``flash_attention.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ def flash_attention(q, k, v, *, causal: bool = False, window: int = 0):
     dtype: softmax(q k^T / sqrt(hd) + bias) v, bias additive -1e9 where
     ``causal``/``window`` hide a key."""
     _check(q, k, v)
+    build.no_backward("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

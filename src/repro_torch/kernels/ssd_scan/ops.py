@@ -11,8 +11,9 @@ stream, with f32 scratch for the states and C Bᵀ allocated here.  In f32
 the kernel stages x, Bm and Cm by 16-byte copies, so their rows must
 start on 16-byte boundaries; a view that breaks this raises (there is no
 other route).  A CPU tensor goes to the plain version
-``ref.ssd_chunked``.  ``ssd_scan.launches`` counts wrapper calls that
-launched the kernel.
+``ref.ssd_chunked``.  It raises where autograd would need a gradient
+through it (``build.no_backward``).  ``ssd_scan.launches`` counts
+wrapper calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -96,6 +97,7 @@ def ssd_scan(x, dtv, A, Bm, Cm, *, chunk: int = 128):
     Returns (y (B,S,H,P) in x's dtype, None), the signature of the JAX
     package's wrapper."""
     _check(x, dtv, A, Bm, Cm, chunk)
+    build.no_backward("ssd_scan", x, dtv, A, Bm, Cm)
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dtv, A, Bm, Cm, chunk)[0], None
     return _launch(x, dtv, A, Bm, Cm, chunk)[0], None
@@ -109,6 +111,7 @@ def ssd_scan_passes(x, dtv, A, Bm, Cm, *, chunk: int = 128):
     these are views of the kernel's scratch, and C Bᵀ is written on and
     below the diagonal only; a CPU tensor gets the plain passes."""
     _check(x, dtv, A, Bm, Cm, chunk)
+    build.no_backward("ssd_scan", x, dtv, A, Bm, Cm)
     if x.device.type == "cpu":
         return ref.ssd_passes(x, dtv, A, Bm, Cm, chunk)
     y, scratch = _launch(x, dtv, A, Bm, Cm, chunk)

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX package parameters -> the port's module state.
+"""Weight bridge between the JAX package's parameter tree and the port's
+module state, both ways.
 
 The JAX ``Model.init`` tree is ``{"embed", "ln_f": {"scale"}, "head",
 "time": {"w1", "w2"}, "unit": {"b{i}": {...}}}`` where every leaf under
@@ -8,6 +9,8 @@ model's one shared attention block, ``shared/...``, maps onto the port's
 ``shared.*``; the tree has no ``unit/b{i}`` entry for the shared slot,
 and the port's sites there hold no parameters.  Dense weights keep their
 ``(d_in, d_out)`` layout; every array is copied bitwise.
+``to_jax_tree`` is the inverse of ``to_state_dict``: the checkpoint
+writer and the trainer's optimizer state go through it.
 """
 from __future__ import annotations
 
@@ -51,6 +54,36 @@ def to_state_dict(params: dict, unit: tuple[str, ...],
     return state
 
 
+def to_jax_tree(state: dict, unit: tuple[str, ...], n_super: int) -> dict:
+    """The port's state-dict keys -> the JAX parameter tree, the inverse
+    of :func:`to_state_dict`: slot ``i`` of every superblock is stacked
+    back along a leading ``n_super`` axis at ``unit/b{i}/...``, and every
+    other key (``shared.*`` included) becomes its nested path.  Leaves
+    are detached tensors, bitwise the inputs."""
+    tree: dict = {}
+    slots: dict[tuple[int, str], dict[int, torch.Tensor]] = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            j, i = divmod(int(parts[1]), len(unit))
+            slots.setdefault((i, ".".join(parts[2:])), {})[j] = t.detach()
+        else:
+            _put(tree, parts, t.detach())
+    for (i, rest), per in slots.items():
+        if sorted(per) != list(range(n_super)):
+            raise ValueError(f"unit slot {i} {rest}: superblocks "
+                             f"{sorted(per)} of {n_super}")
+        _put(tree, ["unit", f"b{i}", *rest.split(".")],
+             torch.stack([per[j] for j in range(n_super)]))
+    return tree
+
+
+def _put(tree: dict, parts: list[str], leaf) -> None:
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = leaf
+
+
 def load_params(model, params: dict) -> None:
     """Copy a JAX parameter tree into ``model`` in place.  Every module
     parameter must be covered and every array must fit exactly."""
@@ -85,3 +118,11 @@ def load_checkpoint(model, path: str) -> None:
     """Load a JAX checkpoint (``.npz`` + ``.json`` manifest) into
     ``model``."""
     load_params(model, checkpoint.load(path))
+
+
+def save_checkpoint(model, path: str) -> None:
+    """Write ``model``'s parameters as the JAX package's checkpoint
+    (``.npz`` + ``.json`` manifest, the JAX tree's keys), which
+    ``repro.training.checkpoint.load`` and :func:`load_checkpoint` read."""
+    checkpoint.save(path, to_jax_tree(dict(model.named_parameters()),
+                                      model.unit, model.n_super))

@@ -62,8 +62,11 @@ class Model(nn.Module):
         return self.embed.device
 
     def forward(self, tokens: torch.Tensor, t: torch.Tensor | None = None,
-                causal: bool | None = None) -> torch.Tensor:
-        """tokens: (B, S) int -> logits (B, S, V)."""
+                causal: bool | None = None, return_aux: bool = False):
+        """tokens: (B, S) int -> logits (B, S, V); with ``return_aux``,
+        (logits, aux losses), the JAX ``Model.forward``'s pair.  The aux
+        terms ``load_balance`` and ``router_z`` sum the MoE blocks'; no
+        block the port builds has any, so they are f32 zeros."""
         cfg = self.cfg
         if causal is None:
             causal = not cfg.bidirectional
@@ -75,7 +78,11 @@ class Model(nn.Module):
                 blk = self.shared
             h = blk(h, causal=causal)
         h = self.ln_f(h)
-        return h @ (self.embed.T if self.head is None else self.head)
+        logits = h @ (self.embed.T if self.head is None else self.head)
+        if not return_aux:
+            return logits
+        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return logits, {"load_balance": zero, "router_z": zero}
 
     def denoise_fn(self, cond: dict | None = None):
         """Wrap into the samplers' ``denoise_fn(x_t, t, cond)`` contract.

@@ -105,3 +105,19 @@ def test_continuous_scheduler_invariants(engine, requests, seed):
 
     # batching only helps: a cohort's calls are the longest member's
     assert sched.total_calls <= total_executed
+
+
+def test_dndm_c_tied_timestamps_match_the_solo_run(engine):
+    """A DNDM-C plan whose f32 timestamps tie (scheduler seed 893: two
+    tokens at 0.8226311) holds that time twice; the rolling row reveals
+    one owner per call, lowest index first, as the solo sampler's stable
+    sort does, so the tokens are the solo run's."""
+    sched = ContinuousScheduler(engine, max_batch=ROWS, bucket_len=SEQ,
+                                seed=893, device="cpu")
+    rid = sched.submit(SEQ, method="dndm_c")
+    sched.run()
+    r = sched.done[rid]
+    times = np.asarray(r.plan.times)
+    assert len(np.unique(times)) < len(times)
+    solo, _ = engine.generate(r.seed, 1, SEQ, method="dndm_c")
+    np.testing.assert_array_equal(solo.tokens[0].numpy(), r.result)

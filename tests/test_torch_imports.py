@@ -46,8 +46,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
               "repro_torch.models.mamba2",
               "repro_torch.core.samplers.stepwise",
               "repro_torch.serving.engine", "repro_torch.serving.scheduler",
-              "repro_torch.launch.serve",
+              "repro_torch.launch.serve", "repro_torch.launch.train",
               "repro_torch.models.convert",
+              "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.data.synthetic", "repro_torch.data.tokenizer",
+              "repro_torch.core.forward", "repro_torch.core.losses",
+              "repro_torch.training", "repro_torch.training.checkpoint",
+              "repro_torch.training.optim", "repro_torch.training.trainer",
               "repro_torch.obs", "repro_torch.obs.metrics",
               "repro_torch.obs.sketch", "repro_torch.obs.tracing",
               "repro_torch.obs.slo", "repro_torch.obs.exporter",
