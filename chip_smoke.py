@@ -16,7 +16,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      1e-4 (the sums run in another order, the products as 3xTF32 on the
      tensor cores), bf16 within 2e-2 (one bf16 rounding of the output, as
      tests/test_kernels.py allows); the ranked path's prefixed lengths
-     (S = 179, 184) included;
+     (S = 179, 184) and the mixtral path's (4, 256, 32 heads, 8 kv heads,
+     hd 128, window 4096) included;
   5. decode_scores kernel vs its plain version, K in {28, 32, 33, 100,
      257, 1000}, the shapes of the paths that decode through it (the
      ranked path's (8, 128, 28), continuous text8's (8, 256, 28), the
@@ -79,6 +80,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode_scores = 0; then the full-width logits of one call through
      the kernels vs the plain route (ref.ssd_chunked and einsum
      attention); then one profiled sampler run;
+  8c. the mixtral path (the zamba2 model freed first): mixtral-8x7b at
+     every published width (d_model 4096, 32 heads with 8 kv heads of
+     128, 8 experts of d_ff 14336, top-2, sliding window 4096, vocab
+     32000) with 4 of its 32 layers (the f32 weights of 32 take 186.8 GB;
+     4 take 24.4), random weights from seed 0, f32, attn_impl="pallas";
+     a GenerationEngine (method "dndm", T = 50, absorbing noise,
+     x0_mode "sample") behind a BatchScheduler (max_batch 4, bucket_len
+     256) drains 4 requests of 256 tokens.  Checks as in 6, with
+     flash_attention = 4 x total NFE, dndm_update = total NFE and
+     decode_scores = ssd_scan = 0.  Then the denoiser block by block
+     from the same input through the kernels and through einsum
+     attention: per block the tokens whose top-2 experts differ (under
+     1%; near-ties of the router flip on rounding), every token whose
+     routing agrees within the logits bar, and the logits of the last
+     block's two outputs; one MoE layer alone under torch.profiler must
+     make no synchronising CUDA call; the MoE layer's time in router +
+     dispatch, expert GEMMs and combine; one profiled sampler run (T =
+     10); flash_attention at the path's shape beside
+     scaled_dot_product_attention; peak memory under 80 GB;
+  8d. the reduced zoo sweep: every registered config but xlstm-350m at
+     .reduced(attn_impl="pallas") through one GenerationEngine dndm batch
+     (B 2, N 64, T 20; musicgen and chameleon with the frontend stub's
+     embeddings) on the card, each checked as in 6: in-vocabulary
+     tokens, no [MASK], NFE = unique tau, each kernel's launches;
   9. kernel times at the paths' shapes beside their bounds (bytes or f32
      flops on the CUDA cores; for flash_attention and ssd_scan also the
      tensor-core bound, their flops at a third of the TF32 rate), the
@@ -179,6 +204,7 @@ TELEMETRY_MEASURE_PAIRS (10) off/on pairs per path.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -214,7 +240,10 @@ from repro_torch.kernels.ssd_scan import ref as k4_ref  # noqa: E402
 from repro_torch.data import (DataConfig, DataPipeline,  # noqa: E402
                               MarkovLanguage)
 from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import frontend as frontend_lib  # noqa: E402
 from repro_torch.models import mamba2 as mamba2_lib  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models.config import moe_pattern  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.obs import schema as obs_schema  # noqa: E402
@@ -256,7 +285,8 @@ K2_CASES = ([(B, S, H, H, hd, c, 0)
                (4, 256, 32, 32, 80, False, 0),    # zamba2's shared block
                (2, 77, 4, 4, 80, False, 0),       # hd 80, ragged S
                (8, 184, 8, 8, 64, False, 0),      # the ranked path's
-               (8, 179, 8, 8, 64, False, 0)])     # prefixed lengths
+               (8, 179, 8, 8, 64, False, 0),      # prefixed lengths
+               (4, 256, 32, 8, 128, False, 4096)])  # the mixtral path's
 K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 MAIN_REQUESTS, MAIN_LEN, MAIN_BATCH, MAIN_T = 16, 256, 8, 1000
@@ -286,6 +316,21 @@ ZAMBA_REQUESTS, ZAMBA_LEN, ZAMBA_BATCH, ZAMBA_T = 4, 256, 4, 50
 # the profiled zamba2 run uses T = 10 (about 10 network calls of the same
 # shape): the profiler's bookkeeping of ~3,800 launches per call is slow
 ZAMBA_PROFILE_T = 10
+
+# the mixtral path (phase 8c): mixtral-8x7b at every published width, its
+# 32 layers cut to MIXTRAL_LAYERS (the f32 weights of all 32 take more
+# than twice the card's memory); one profiled sampler run at T = 10
+MIXTRAL_LAYERS = 4
+MIXTRAL_REQUESTS, MIXTRAL_LEN, MIXTRAL_BATCH, MIXTRAL_T = 4, 256, 4, 50
+MIXTRAL_PROFILE_T = 10
+# the share of a block's tokens whose top-k experts may differ between the
+# kernel route and the plain one (attention outputs differ by about 1e-5,
+# which flips near-ties among the router's probabilities)
+ROUTE_FLIP_SHARE = 0.01
+CARD_MEMORY_BYTES = 80e9
+
+# the reduced zoo sweep (phase 8d): one dndm batch per buildable config
+ZOO_B, ZOO_N, ZOO_T = 2, 64, 20
 
 SWEEP_B, SWEEP_N, SWEEP_T, SWEEP_STRIDE = 4, 64, 50, 2
 DECODE_TOKENS_METHODS = frozenset({
@@ -635,7 +680,7 @@ def per_call_launches(cfg, decode: str) -> dict:
     pattern = cfg.block_pattern
     want = {k: 0 for k in KERNELS}
     want[decode] = 1
-    want["flash_attention"] = sum(k in ("attn", "swa", "shared_attn")
+    want["flash_attention"] = sum(k in ("attn", "swa", "shared_attn", "moe")
                                   for k in pattern)
     want["ssd_scan"] = 2 * pattern.count("mamba2")
     return want
@@ -1710,6 +1755,348 @@ def measure_zamba(g) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# The mixtral path (phase 8c) and the reduced zoo sweep (phase 8d).
+
+def mixtral_model() -> tuple[Model, dict]:
+    """mixtral-8x7b at every published width with MIXTRAL_LAYERS of its
+    layers, attn_impl="pallas", f32, random weights from seed 0, and the
+    record of the cut."""
+    full = configs_lib.get("mixtral-8x7b")
+    cfg = full.replace(n_layers=MIXTRAL_LAYERS,
+                       block_pattern=moe_pattern(MIXTRAL_LAYERS),
+                       attn_impl="pallas")
+    model = Model(cfg, device="cuda", seed=0)
+    size = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    per_layer = sum(p.numel() for p in model.blocks[0].parameters())
+    full_params = (model.param_count()
+                   + (full.n_layers - cfg.n_layers) * per_layer)
+    return model, {
+        "config": {k: v for k, v in dataclasses.asdict(cfg).items()
+                   if k != "block_pattern"},
+        "params": model.param_count(),
+        "active_params": model.active_param_count(),
+        "weights_gb": size * model.param_count() / 1e9,
+        "reduced": [f"n_layers {full.n_layers} -> {cfg.n_layers} "
+                    f"({cfg.dtype} weights of {full.n_layers} layers are "
+                    f"{size * full_params / 1e9:.1f} GB)"]}
+
+
+def route_sets(state: dict, T: int, E: int, C: int):
+    """One group's routing as (T, E) masks: each token's top-k experts,
+    and those of them that kept a capacity slot."""
+    chosen = torch.zeros((T, E), dtype=torch.bool, device="cuda")
+    chosen.scatter_(1, state["expert_idx"][0], True)
+    st, slot, keep = state["st"][0], state["slot"][0], state["keep"][0]
+    kept = torch.zeros(T * E + 1, dtype=torch.bool, device="cuda")
+    kept[torch.where(keep, st * E + slot // C, T * E)] = True
+    return chosen, kept[:T * E].view(T, E)
+
+
+def moe_block(blk, h, C: int):
+    """An "moe" block's forward, step by step: (output, routing state, aux
+    losses, the MoE's input)."""
+    x = h + blk.attn(blk.ln1(h), causal=False, window=blk.window)
+    n = blk.ln2(x)
+    buf, state, aux = blk.moe.route(n.reshape(1, -1, n.shape[-1]), C)
+    y = x + blk.moe.combine(blk.moe.expert_ffn(buf), state).view_as(x)
+    return y, state, aux, n
+
+
+def check_mixtral_denoiser(model, batch: int, n_tok: int) -> dict:
+    """The full-width denoiser block by block, the kernel route (flash
+    attention) against the plain one (einsum attention), each block fed
+    the same input, the kernel route's output of the block before.  Near
+    ties among the router's probabilities may pick other experts where
+    the attention outputs differ by rounding, so each block counts the
+    tokens whose top-k experts differ (under ROUTE_FLIP_SHARE of them)
+    and holds every token whose routing agrees (the same experts, the
+    same ones kept) at the logits bar (atol 3e-4, rtol 3e-3); then the
+    logits of the last block's two outputs, on its agreeing tokens."""
+    cfg = model.cfg
+    plain_cfg = cfg.replace(attn_impl="einsum")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (batch, n_tok), generator=g,
+                        device="cuda", dtype=torch.int32)
+    t = torch.rand(batch, generator=g, device="cuda")
+    T, E = batch * n_tok, cfg.n_experts
+    C = moe_lib.capacity(cfg, T)
+    blocks, moe_in = [], None
+    with torch.inference_mode():
+        h = F.embedding(tok, model.embed) + model.time(t)[:, None]
+        for i, blk in enumerate(model.blocks):
+            y, state, aux, n = moe_block(blk, h, C)
+            blk.attn.cfg = plain_cfg
+            try:
+                yp, state_p, _, _ = moe_block(blk, h, C)
+            finally:
+                blk.attn.cfg = cfg
+            if moe_in is None:
+                moe_in = n
+            chosen, kept = route_sets(state, T, E, C)
+            chosen_p, kept_p = route_sets(state_p, T, E, C)
+            flipped = (chosen != chosen_p).any(-1)
+            agree = ~flipped & ~(kept != kept_p).any(-1)
+            a, b = y.reshape(T, -1)[agree], yp.reshape(T, -1)[agree]
+            rec = {"block": i, "tokens": T,
+                   "top_k_differs": int(flipped.sum()),
+                   "routed_differently": int((~agree).sum()),
+                   "max_err_agreeing": float((a - b).abs().max()),
+                   "dropped_frac": float(aux["dropped_frac"]),
+                   "load_balance": float(aux["load_balance"]),
+                   "router_z": float(aux["router_z"])}
+            blocks.append(rec)
+            print(f"mixtral block {i}: {rec['top_k_differs']} of {T} tokens "
+                  f"route to other top-{cfg.experts_per_token} experts "
+                  f"through the plain route ({rec['routed_differently']} "
+                  f"routed differently); agreeing tokens max err "
+                  f"{rec['max_err_agreeing']:.3g}; dropped_frac "
+                  f"{rec['dropped_frac']:.4f}", flush=True)
+            if not (torch.isfinite(y).all() and torch.isfinite(yp).all()):
+                raise AssertionError(f"mixtral block {i}: non-finite output")
+            if rec["top_k_differs"] >= ROUTE_FLIP_SHARE * T:
+                raise AssertionError(f"mixtral block {i}: "
+                                     f"{rec['top_k_differs']} of {T} tokens "
+                                     "route differently")
+            if not torch.allclose(a, b, atol=3e-4, rtol=3e-3):
+                raise AssertionError(f"mixtral block {i}: agreeing tokens "
+                                     f"max err {rec['max_err_agreeing']}")
+            h = y
+        head = model.embed.T if model.head is None else model.head
+        la = (model.ln_f(y) @ head).reshape(T, -1)[agree]
+        lb = (model.ln_f(yp) @ head).reshape(T, -1)[agree]
+        logits_err = float((la - lb).abs().max())
+        if not (torch.isfinite(la).all()
+                and torch.allclose(la, lb, atol=3e-4, rtol=3e-3)):
+            raise AssertionError(f"mixtral logits: max err {logits_err}")
+    return {"blocks": blocks, "logits_max_err_agreeing": logits_err,
+            "moe_input": moe_in, "capacity": C}
+
+
+def traced_syncs(fn) -> dict:
+    """``fn()`` under torch.profiler (CUDA activity): its synchronising
+    CUDA runtime calls (SYNC_CALLS), all of them and those that start
+    before the end of its last kernel launch (the profiler may flush the
+    card with one of its own as it stops), its runtime calls and its
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    syncs, launch_end, runtime, device = [], 0, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            device += 1
+        elif e.name().startswith("cu"):
+            runtime += 1
+            if e.name() in SYNC_CALLS:
+                syncs.append((e.start_ns(), e.name()))
+            elif "Launch" in e.name():
+                launch_end = max(launch_end, e.start_ns() + e.duration_ns())
+    return {"sync_calls": [name for _, name in syncs],
+            "before_last_launch": [name for t, name in syncs
+                                   if t < launch_end],
+            "runtime_calls": runtime, "device_events": device}
+
+
+def moe_sync_calls(moe, n) -> dict:
+    """One MoE layer at the path's shape must make the host wait for the
+    card nowhere: run once under ``torch.cuda.set_sync_debug_mode``
+    ("error": PyTorch raises at any synchronising op), then under
+    torch.profiler beside a baseline that launches one kernel, where no
+    synchronising runtime call may start before its last launch ends and
+    it may make no more than the baseline (the profiler's own)."""
+    with torch.inference_mode():
+        moe(n)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe(n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        base = traced_syncs(lambda: torch.zeros(1, device="cuda"))
+        own = traced_syncs(lambda: moe(n))
+    if not own["runtime_calls"] or not own["device_events"]:
+        raise AssertionError(f"MoE profile holds no launch: {own}")
+    if (own["before_last_launch"]
+            or len(own["sync_calls"]) > len(base["sync_calls"])):
+        raise AssertionError(f"MoE layer synchronises: {own}; a profile "
+                             f"of one kernel: {base}")
+    return {"layer": own, "baseline": base}
+
+
+def moe_split(moe, n, C: int) -> dict:
+    """The MoE layer's time at the path's shape, launch-paced
+    (``time_ms``), in its three parts: router and dispatch (``route``),
+    the expert products (``expert_ffn``: three batched GEMMs), and the
+    gated combine; with the expert products' rate and the share of their
+    capacity rows that padding fills."""
+    cfg = moe.cfg
+    T, d = n.shape[0] * n.shape[1], n.shape[2]
+    xg = n.reshape(1, T, d)
+    with torch.inference_mode():
+        h, state, _ = moe.route(xg, C)
+        out = moe.expert_ffn(h)
+        ms = {"layer": time_ms(lambda: moe(n), 10),
+              "router_and_dispatch": time_ms(lambda: moe.route(xg, C), 20),
+              "expert_gemms": time_ms(lambda: moe.expert_ffn(h), 10),
+              "combine": time_ms(lambda: moe.combine(out, state), 20)}
+        kept = int(state["keep"].sum())
+    E, ff = cfg.n_experts, cfg.d_ff
+    gemm_flops = (3 if cfg.mlp_type == "swiglu" else 2) * 2 * E * C * d * ff
+    return {"ms": ms, "capacity": C, "capacity_rows": E * C,
+            "kept_assignments": kept, "padding_share": 1 - kept / (E * C),
+            "expert_gemm_tflop": gemm_flops / 1e12,
+            "expert_gemm_tflop_per_s": gemm_flops / ms["expert_gemms"] / 1e9}
+
+
+def measure_mixtral_flash(g) -> dict:
+    """flash_attention at the mixtral path's shape, (B, S, H, KV, hd) =
+    (4, 256, 32, 8, 128), window 4096 (no key hidden at S = 256), f32:
+    kernel, plain and scaled_dot_product_attention (enable_gqa) times as
+    ``measure_zamba`` takes them, and the bounds.  Bytes: q and the
+    output at 32 heads, k and v at 8."""
+    B, S, H, KV, hd, _, W = K2_CASES[-1]
+    q = torch.randn(B, S, H, hd, generator=g, device="cuda")
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device="cuda")
+            for _ in range(2))
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    k2 = lambda: k2_ops.flash_attention(q, k, v, window=W)  # noqa: E731
+    k2p = lambda: k2_ref.attention(q, k, v, window=W)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, enable_gqa=True)
+    err = float((k2() - lib().transpose(1, 2)).abs().max())
+    p1, m1, l1, m2, l2, p2 = (time_ms(f, 50)
+                              for f in (k2p, k2, lib, k2, lib, k2p))
+    d1, dl1, d2, dl2 = (device_time_ms(f, 50) for f in (k2, lib, k2, lib))
+    n_bytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    return {"shape": [B, S, H, KV, hd], "window": W,
+            "ms": statistics.median([m1, m2]), **device_fields(d1, d2),
+            "plain_ms": statistics.median([p1, p2]),
+            **bound(n_bytes, 4 * B * H * S * S * hd, tensor_cores=True),
+            "library_ms": statistics.median([l1, l2]),
+            "library_device_ms": statistics.median([dl1[0], dl2[0]]),
+            "max_abs_err_vs_library": err}
+
+
+def mixtral_phase(g, card: str) -> tuple[dict, dict]:
+    """Phase 8c: serve MIXTRAL_REQUESTS x MIXTRAL_LEN tokens of the
+    mixtral path with dndm through the port's entry points, with phase
+    6's checks and the launch counts (flash_attention once per "moe"
+    block per network call); the block-by-block denoiser check; the MoE
+    layer's synchronising calls and time split; one profiled sampler run;
+    flash_attention at the path's shape; peak memory.  Returns the path's
+    record and its launch counts."""
+    torch.cuda.reset_peak_memory_stats()
+    model, info = mixtral_model()
+    print(f"mixtral path ({card}): {info['params'] / 1e9:.3f} B parameters "
+          f"({info['weights_gb']:.1f} GB); reduced: {info['reduced']}; "
+          f"config {info['config']}", flush=True)
+    model, sched, done, drain_s, counts = main_path(
+        n_req=MIXTRAL_REQUESTS, n_len=MIXTRAL_LEN, batch=MIXTRAL_BATCH,
+        steps=MIXTRAL_T, model=model)
+    stats = check_main_path(model, sched, done, counts, MIXTRAL_REQUESTS,
+                            MIXTRAL_LEN)
+    ms_call = 1e3 * stats["timed_wall_s"] / stats["timed_nfe"]
+    print(f"mixtral path: {counts}; NFE {stats['timed_nfe']}; "
+          f"{ms_call:.2f} ms per network call, "
+          f"{len(done) / drain_s:.3f} req/s", flush=True)
+    den = check_mixtral_denoiser(model, MIXTRAL_BATCH, MIXTRAL_LEN)
+    moe = model.blocks[0].moe
+    syncs = moe_sync_calls(moe, den["moe_input"])
+    split = moe_split(moe, den["moe_input"], den["capacity"])
+    print(f"mixtral MoE layer: synchronising calls "
+          f"{syncs['layer']['before_last_launch']} before its last launch, "
+          f"{syncs['layer']['sync_calls']} in all (one-kernel baseline "
+          f"{syncs['baseline']['sync_calls']}) of "
+          f"{syncs['layer']['runtime_calls']} runtime calls; ms "
+          f"{split['ms']}; expert GEMMs "
+          f"{split['expert_gemm_tflop_per_s']:.1f} TFLOP/s; padding "
+          f"{100 * split['padding_share']:.1f}% of the capacity rows",
+          flush=True)
+    prof = profile_run(GenerationEngine(model, EngineConfig(
+        method="dndm", steps=MIXTRAL_PROFILE_T, noise_kind="absorbing",
+        x0_mode="sample"), device="cuda"), "dndm", MIXTRAL_BATCH,
+        MIXTRAL_LEN, top=10)
+    prof["device_busy_share"] = prof["device_ms_per_call"] / ms_call
+    flash = measure_mixtral_flash(g)
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= CARD_MEMORY_BYTES:
+        raise AssertionError(f"mixtral path peak memory {peak / 1e9:.1f} GB")
+    del model, sched, moe, den["moe_input"]
+    torch.cuda.empty_cache()
+    return {
+        "mixtral_path": f"mixtral-8x7b full width, {MIXTRAL_LAYERS} of 32 "
+                        f"layers, dndm T={MIXTRAL_T}, absorbing, sample",
+        "card": card, **info,
+        "requests": len(done), "tokens_per_request": MIXTRAL_LEN,
+        "batches": stats["batches"], "nfe_timed": stats["timed_nfe"],
+        "nfe_warmup": stats["warmup_nfe"], "nfe_total": stats["total_nfe"],
+        "launches": counts, "drain_s": drain_s,
+        "timed_wall_s": stats["timed_wall_s"],
+        "req_per_s": len(done) / drain_s, "ms_per_network_call": ms_call,
+        "compile_seconds": max(r.compile_seconds for r in done.values()),
+        "denoiser": {k: v for k, v in den.items() if k != "moe_input"},
+        "moe_sync": syncs, "moe_split": split, "profile": prof,
+        "flash_attention": flash,
+        "max_memory_allocated_gb": peak / 1e9}, counts
+
+
+def zoo_sweep() -> dict:
+    """Phase 8d: every registered config but xlstm-350m, at
+    ``.reduced(attn_impl="pallas")`` with random weights from seed 0,
+    through one GenerationEngine dndm batch (B ZOO_B, N ZOO_N, T ZOO_T,
+    absorbing noise; the audio and vision configs with the stub's
+    frontend embeddings) on the card.  Checks as phase 6's: in-vocabulary
+    tokens, no [MASK], NFE = the batch's unique tau values, and each
+    kernel's launches per network call (the cold key's warm-up run
+    included)."""
+    out = {}
+    for arch in configs_lib.list_archs():
+        if arch == "xlstm-350m":
+            continue
+        cfg = configs_lib.get(arch).reduced(attn_impl="pallas")
+        model = Model(cfg, device="cuda", seed=0)
+        engine = GenerationEngine(model, EngineConfig(
+            method="dndm", steps=ZOO_T, noise_kind="absorbing",
+            x0_mode="sample"), device="cuda")
+        fe = frontend_lib.fake_frontend_embeds(
+            torch.Generator(device="cuda").manual_seed(1), cfg, ZOO_B,
+            "cuda")
+        cond = None if fe is None else {"frontend_embeds": fe}
+        reset_counts()
+        engine.network_calls = 0
+        res, wall = engine.generate(0, ZOO_B, ZOO_N, cond=cond)
+        counts = read_counts(engine)
+        tok = res.tokens.cpu()
+        if tok.shape != (ZOO_B, ZOO_N) or not (
+                (tok >= 0) & (tok < engine.noise.mask_id)).all():
+            raise AssertionError(f"zoo {arch}: tokens out of vocabulary or "
+                                 "[MASK] left")
+        tau, *_ = loop.setup(torch.Generator(device="cuda").manual_seed(0),
+                             engine.noise, ZOO_B, ZOO_N,
+                             dist=engine.runtime().dist, shared=True,
+                             device=engine.device)
+        n_unique = len(loop.unique_times(tau.cpu().numpy()))
+        if res.nfe != n_unique:
+            raise AssertionError(f"zoo {arch}: NFE {res.nfe} != {n_unique}")
+        calls = counts["network_calls"]
+        if calls != 2 * res.nfe:
+            raise AssertionError(f"zoo {arch}: {calls} network calls for "
+                                 f"NFE {res.nfe} and its warm-up")
+        for k, per in per_call_launches(cfg, "dndm_update").items():
+            if counts[k] != per * calls:
+                raise AssertionError(f"zoo {arch}: {k} launched {counts[k]}"
+                                     f" times, expected {per} x {calls}")
+        out[arch] = {"pattern": list(cfg.block_pattern), "nfe": res.nfe,
+                     "launches": counts, "wall_s": wall,
+                     "frontend": cfg.frontend}
+        del model, engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def launch_floor(name: str, logits, mask, gumbel, x=None, tau=None,
                  t: int = 0):
     """The floor under a decode wrapper's host time: a bare allocation of
@@ -2353,6 +2740,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("zamba2_logits_and_profile")
 
+    # 8c. the mixtral path (the zamba2 model is freed: this one takes
+    # 24.4 GB)
+    mx_line, mx_counts = mixtral_phase(g, card)
+    lap("mixtral_path")
+    # 8d. every buildable config, reduced, through one dndm batch
+    zoo = zoo_sweep()
+    print(f"zoo sweep: {len(zoo)} configs; NFE "
+          f"{ {k: v['nfe'] for k, v in zoo.items()} }", flush=True)
+    lap("zoo_sweep")
+
+    def zoo_launches(name: str) -> int:
+        return sum(r["launches"][name] for r in zoo.values())
+
     # 9. times
     t = measure(g)
     tz = measure_zamba(g)
@@ -2367,6 +2767,8 @@ def main() -> int:
              "ranked": cont_ranked["continuous"]["launches"]["dndm_update"],
              "sweep": csweep["launches"]["dndm_update"]},
          "launches_training": sv["launches"]["dndm_update"],
+         "launches_mixtral": mx_counts["dndm_update"],
+         "launches_zoo": zoo_launches("dndm_update"),
          **t["dndm_update"], "at_k32000": tz["dndm_update"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2377,7 +2779,9 @@ def main() -> int:
              "ranked":
              cont_ranked["continuous"]["launches"]["flash_attention"]},
          "launches_training": sv["launches"]["flash_attention"],
-         **t["flash_attention"]},
+         "launches_mixtral": mx_counts["flash_attention"],
+         "launches_zoo": zoo_launches("flash_attention"),
+         **t["flash_attention"], "at_mixtral": mx_line["flash_attention"]},
         {"name": "decode_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_scores.cu",
          "replaces": "src/repro/kernels/decode_scores/kernel.py:35",
@@ -2393,6 +2797,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:26",
          "launches": z_counts["ssd_scan"],
+         "launches_zoo": zoo_launches("ssd_scan"),
          "max_abs_err": max(k4_check["max_err_f32"],
                             k4_check["full"]["vs_chunked"]),
          **tz["ssd_scan"]},
@@ -2457,6 +2862,8 @@ def main() -> int:
     print(json.dumps(main_line))
     print(json.dumps(mt_line))
     print(json.dumps(z_line))
+    print(json.dumps(mx_line))
+    print(json.dumps({"zoo_sweep": zoo}))
     print(json.dumps({"registry_sweep": sweep}))
     card = gpu_name_and_power()
     print(json.dumps({"continuous_text8": {

@@ -1,0 +1,29 @@
+"""The four assigned input shapes.
+
+train_4k / prefill_32k lower full-sequence programs (train_step /
+denoiser-NFE forward); decode_32k / long_500k lower ``serve_step`` —
+one new token against a KV/state cache of ``seq_len``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def get(name: str) -> InputShape:
+    return SHAPES[name]

@@ -1,3 +1,3 @@
-"""Model zoo of the port.  This slice has the paper's dense transformer
-denoiser (``attn``/``swa`` blocks); the other block kinds come with later
-slices."""
+"""Model zoo of the port: attention ("attn"/"swa"/"shared_attn"), MoE
+("moe") and Mamba-2 ("mamba2") blocks, and the audio/vision frontend
+stub; the xLSTM blocks ("mlstm"/"slstm") come with a later slice."""

@@ -12,10 +12,11 @@ A model is a sequence of *blocks* (``block_pattern``), each one of:
   "slstm"       — xLSTM scalar-LSTM block
   "shared_attn" — Zamba-style attention block with *shared* weights across
                   all its occurrences
-The port runs "attn", "swa", "mamba2" (its SSD scan on the hand-written
-CUDA kernel ``repro_torch/csrc/ssd_scan.cu`` for CUDA tensors) and
-"shared_attn" blocks; "moe", "mlstm" and "slstm" come with later slices
-and raise ``NotImplementedError`` when a model is built.
+The port runs "attn", "swa", "moe" (the sort-dispatched mixture of
+experts of ``models/moe.py``), "mamba2" (its SSD scan on the
+hand-written CUDA kernel ``repro_torch/csrc/ssd_scan.cu`` for CUDA
+tensors) and "shared_attn" blocks; "mlstm" and "slstm" come with the
+xLSTM slice and raise ``NotImplementedError`` when a model is built.
 
 ``attn_impl`` keeps the JAX package's values: "einsum" (plain S^2
 attention), "blocked" (online softmax over KV chunks in plain PyTorch)

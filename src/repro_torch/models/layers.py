@@ -15,17 +15,24 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
-               device=None, scale: float = 1.0) -> nn.Parameter:
-    """Truncated-normal (on [-2, 2]) weight of shape (d_in, d_out), by
-    inverse CDF: u uniform on [Phi(-2), Phi(2)], x = sqrt(2) erfinv(2u-1)."""
-    std = scale / (d_in ** 0.5)
+def truncated_normal(generator: torch.Generator, shape: tuple[int, ...],
+                     std: float, dtype, device=None) -> nn.Parameter:
+    """Truncated-normal (on [-2, 2]) weight times ``std``, by inverse CDF:
+    u uniform on [Phi(-2), Phi(2)], x = sqrt(2) erfinv(2u-1)."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
-    w = torch.empty((d_in, d_out), dtype=torch.float32, device=device)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
     w.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
     w.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
     return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
+               device=None, scale: float = 1.0) -> nn.Parameter:
+    """Weight of shape (d_in, d_out): truncated normal times
+    ``scale / sqrt(d_in)``."""
+    return truncated_normal(generator, (d_in, d_out), scale / d_in ** 0.5,
+                            dtype, device)
 
 
 # ---------------- RMSNorm ----------------

@@ -1,5 +1,6 @@
 """Top-level Model: embeddings, the layer stack, diffusion time
-conditioning, the LM head, and the samplers' denoiser adapter.
+conditioning, frontend fusion, the LM head, and the samplers' denoiser
+adapter.
 
 Where the JAX package stacks each unit slot's weights along a leading
 ``n_super`` axis and runs a ``lax.scan``, the port holds one module per
@@ -8,8 +9,10 @@ layer in an ``nn.ModuleList`` (``blocks[j * len(unit) + i]`` is unit slot
 onto it).  "shared_attn" blocks (Zamba) hold one weight set,
 ``self.shared``, run at every "shared_attn" site of the pattern; the
 sites themselves are parameterless placeholders in ``blocks``, so every
-parameter has exactly one name.  Frontend fusion (the audio/vision stub)
-is not part of the port yet.
+parameter has exactly one name.  A config with a ``frontend`` (the
+audio/vision stub, ``models/frontend.py``) takes precomputed embeddings
+over its first ``frontend_tokens`` positions.  The KV/state caches and
+``decode_step`` come with a later slice.
 
 Float32 products stay float32 on the card: the port relies on PyTorch's
 default ``torch.backends.cuda.matmul.allow_tf32 == False``.
@@ -21,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import device as device_lib
-from repro_torch.models import blocks
+from repro_torch.models import blocks, frontend
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import RMSNorm, TimeEmbed, dense_init
 
@@ -34,9 +37,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if cfg.frontend:
-            raise NotImplementedError(
-                "frontend stubs come with the model-zoo slice")
         self.cfg = cfg
         self.unit, self.n_super = cfg.superblock()
         dev = device_lib.resolve(device)
@@ -62,42 +62,70 @@ class Model(nn.Module):
         return self.embed.device
 
     def forward(self, tokens: torch.Tensor, t: torch.Tensor | None = None,
+                frontend_embeds: torch.Tensor | None = None,
                 causal: bool | None = None, return_aux: bool = False):
         """tokens: (B, S) int -> logits (B, S, V); with ``return_aux``,
-        (logits, aux losses), the JAX ``Model.forward``'s pair.  The aux
-        terms ``load_balance`` and ``router_z`` sum the MoE blocks'; no
-        block the port builds has any, so they are f32 zeros."""
+        (logits, aux losses), the JAX ``Model.forward``'s pair.
+        ``frontend_embeds`` (B, F, d) replace the first F positions after
+        the time embedding.  The aux terms ``load_balance`` and
+        ``router_z`` are f32 sums over the "moe" blocks (zeros without
+        any)."""
         cfg = self.cfg
         if causal is None:
             causal = not cfg.bidirectional
         h = F.embedding(tokens, self.embed)
         if t is not None and self.time is not None:
             h = h + self.time(t)[:, None]
+        h = frontend.fuse(h, frontend_embeds)
+        terms = []
         for kind, blk in zip(cfg.block_pattern, self.blocks):
             if kind == "shared_attn":
                 blk = self.shared
-            h = blk(h, causal=causal)
+            h, aux = blk(h, causal=causal)
+            if aux is not None:
+                terms.append(aux)
         h = self.ln_f(h)
         logits = h @ (self.embed.T if self.head is None else self.head)
         if not return_aux:
             return logits
         zero = torch.zeros((), dtype=torch.float32, device=logits.device)
-        return logits, {"load_balance": zero, "router_z": zero}
+        return logits, {k: sum((a[k] for a in terms), zero)
+                        for k in ("load_balance", "router_z")}
 
     def denoise_fn(self, cond: dict | None = None):
         """Wrap into the samplers' ``denoise_fn(x_t, t, cond)`` contract.
 
         ``cond`` may hold {"prefix_tokens": (B, P)} for conditional
-        generation: the model is fed ``[prefix | x_t]`` with bidirectional
-        attention and only the target segment's logits are returned.
+        generation (the model is fed ``[prefix | x_t]`` with bidirectional
+        attention and only the target segment's logits are returned) and
+        {"frontend_embeds": (B, F, d)}.
         """
         def fn(x_t, t, cond_rt):
             c = cond_rt if cond_rt is not None else (cond or {})
+            fe = c.get("frontend_embeds")
             prefix = c.get("prefix_tokens")
             if prefix is not None:
                 full = torch.cat([prefix.to(x_t.dtype), x_t], dim=1)
-                logits = self.forward(full, t, causal=False)
+                logits = self.forward(full, t, fe, causal=False)
                 # contiguous: the decode kernel reads (B, N, K) densely
                 return logits[:, prefix.shape[1]:].contiguous()
-            return self.forward(x_t, t, causal=False)
+            return self.forward(x_t, t, fe, causal=False)
         return fn
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def active_param_count(self) -> int:
+        """MoE-aware: all but the inactive experts' share of the expert
+        weights (for 6 * N_active * D)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.n_experts:
+            return total
+        moe_leaves = sum(p.numel() for kind, blk in zip(cfg.block_pattern,
+                                                        self.blocks)
+                         if kind == "moe"
+                         for name, p in blk.moe.named_parameters()
+                         if name != "router")
+        inactive = moe_leaves * (1 - cfg.experts_per_token / cfg.n_experts)
+        return int(total - inactive)

@@ -39,9 +39,10 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
     """Returns step(state, batch, generator, draws=None) -> (state,
     metrics).
 
-    batch: {"x0": (B, N) int, optional "src": (B, P) int}, on the model's
-    device.  ``microbatches > 1`` is gradient accumulation: the batch is
-    split along dim 0, and gradients and metrics are averaged.  The
+    batch: {"x0": (B, N) int, optional "src": (B, P) int, optional
+    "frontend_embeds": (B, F, d)}, on the model's device.
+    ``microbatches > 1`` is gradient accumulation: the batch is split
+    along dim 0, and gradients and metrics are averaged.  The
     corruption draws come from ``generator``, microbatch after
     microbatch, or are replayed: ``draws`` holds one {"t", "u", "w"} per
     microbatch (``core/forward.py``).
@@ -62,7 +63,8 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
         src = batch.get("src")
         inp = x_t if src is None else torch.cat([src.to(x_t.dtype), x_t],
                                                 dim=1)
-        logits, aux = model(inp, t_norm, causal=False, return_aux=True)
+        logits, aux = model(inp, t_norm, batch.get("frontend_embeds"),
+                            causal=False, return_aux=True)
         if src is not None:
             logits = logits[:, src.shape[1]:]
 
@@ -72,7 +74,7 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
                 + cfg.router_z_weight * aux["router_z"])
         return loss, {"loss": loss.detach(), "ce": ce_loss.detach(),
                       "masked_acc": acc,
-                      "load_balance": aux["load_balance"]}
+                      "load_balance": aux["load_balance"].detach()}
 
     def step(state, batch, generator, draws=None):
         params = state["params"]

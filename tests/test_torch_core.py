@@ -49,10 +49,12 @@ def test_paper_configs_match(arch):
 
 
 def test_config_registry_has_only_the_paper_models():
-    # the paper's two models, and the Mamba-2 hybrid of the ssd_scan slice
-    assert tconfigs.list_archs() == ["dndm-text8", "dndm-mt", "zamba2-2.7b"]
+    # the JAX package's registry, id for id and in its order: the paper's
+    # two models and the ten assigned architectures
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    assert tconfigs.ASSIGNED_ARCHS == jconfigs.ASSIGNED_ARCHS
     with pytest.raises(KeyError):
-        tconfigs.get("mixtral-8x7b")
+        tconfigs.get("no-such-arch")
 
 
 @pytest.mark.parametrize("name", ["linear", "cosine", "cosine_sq"])

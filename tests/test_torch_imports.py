@@ -43,7 +43,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
               "repro_torch.kernels.decode_scores.ops",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops",
-              "repro_torch.models.mamba2",
+              "repro_torch.models.mamba2", "repro_torch.models.moe",
+              "repro_torch.models.frontend", "repro_torch.configs.shapes",
+              "repro_torch.configs.mixtral_8x7b",
+              "repro_torch.configs.llama4_maverick_400b",
+              "repro_torch.configs.chameleon_34b",
+              "repro_torch.configs.deepseek_7b",
+              "repro_torch.configs.musicgen_large",
+              "repro_torch.configs.phi3_mini_3p8b",
+              "repro_torch.configs.starcoder2_3b",
+              "repro_torch.configs.tinyllama_1p1b",
+              "repro_torch.configs.xlstm_350m",
               "repro_torch.core.samplers.stepwise",
               "repro_torch.serving.engine", "repro_torch.serving.scheduler",
               "repro_torch.launch.serve", "repro_torch.launch.train",

@@ -322,7 +322,7 @@ def test_mamba2_init_formulas_match_jax(H):
     assert not mixer.conv_b.any()
 
 
-@pytest.mark.parametrize("kind", ["moe", "mlstm", "slstm"])
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
 def test_kinds_still_to_port_raise(kind):
     _, tcfg = tiny((kind,), n_experts=4, experts_per_token=2)
     with pytest.raises(NotImplementedError, match="model-zoo"):

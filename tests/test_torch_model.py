@@ -147,14 +147,6 @@ def test_block_kinds_match_jax(kind, causal, mlp_type):
                                atol=ATOL, rtol=RTOL)
 
 
-def test_later_block_kinds_raise_not_implemented():
-    cfg = TConfig(name="m", arch_type="moe", n_layers=1, d_model=32,
-                  n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=20,
-                  block_pattern=("moe",), n_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="model-zoo"):
-        TModel(cfg, device="cpu")
-
-
 def test_seeded_init_is_reproducible_and_scaled():
     cfg = tconfigs.get("dndm-text8").reduced()
     a, b = TModel(cfg, device="cpu", seed=3), TModel(cfg, device="cpu",
