@@ -18,6 +18,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      tests/test_kernels.py allows); the ranked path's prefixed lengths
      (S = 179, 184) and the mixtral path's (4, 256, 32 heads, 8 kv heads,
      hd 128, window 4096) included;
+  4b. flash_decode kernel (the decode form: one query row per head over
+     a ring-buffer KV cache, the bias built in the kernel from (pos, L,
+     window)) vs its plain version (ref.decode_attention), f32 within
+     1e-4, bf16 within 2e-2 scaled by min(1, max |plain|) (a long
+     ring's outputs are about 0.03), at hd 64, 80 and 128, rings of
+     4096 slots and of 16 (wrapped: pos >= L, with and without a window), GQA, and
+     the decode paths' shapes (zamba2's shared block, mixtral's);
   5. decode_scores kernel vs its plain version, K in {28, 32, 33, 100,
      257, 1000}, the shapes of the paths that decode through it (the
      ranked path's (8, 128, 28), continuous text8's (8, 256, 28), the
@@ -99,18 +106,51 @@ Phases, in order; any failure raises and the script exits non-zero:
      dispatch, expert GEMMs and combine; one profiled sampler run (T =
      10); flash_attention at the path's shape beside
      scaled_dot_product_attention; peak memory under 80 GB;
-  8d. the reduced zoo sweep: every registered config but xlstm-350m at
+  8d. the reduced zoo sweep: every registered config at
      .reduced(attn_impl="pallas") through one GenerationEngine dndm batch
      (B 2, N 64, T 20; musicgen and chameleon with the frontend stub's
      embeddings) on the card, each checked as in 6: in-vocabulary
      tokens, no [MASK], NFE = unique tau, each kernel's launches;
+  8e. the xlstm path: xlstm-350m at every published width and depth (24
+     layers = 4 x (5 mLSTM + 1 sLSTM), d_model 1024, 4 lstm heads,
+     vocab 50304; 508,171,264 parameters, the JAX package's eval_shape
+     count), random weights from seed 0, f32; a GenerationEngine (method
+     "dndm", T = 50, absorbing noise, x0_mode "sample") behind a
+     BatchScheduler (max_batch 4, bucket_len 256) drains 4 requests of
+     256 tokens.  Checks as in 6, with dndm_update = total NFE at (4,
+     256, 50304) and no other kernel; then the denoiser's logits with the
+     mLSTM's parallel form against its chunked form (chunk 64) on the
+     same weights (atol 3e-4, rtol 3e-3); one network call, one mLSTM
+     block and one sLSTM block under torch.profiler: device ms, launches,
+     GEMM ms, the busy share and the split into GEMMs, the mLSTM
+     elementwise work and the sLSTM layers;
+  8f. decode on the card (attn_impl "pallas": flash_decode), B = 2, 32
+     positions one token at a time through Model.init_cache /
+     decode_step, against forward(causal=True) on the same tokens (max
+     |decode - forward| <= 1e-3 max |forward| + 2e-4) for xlstm-350m and
+     zamba2-2.7b at full width (the shared block at hd 80; its causal
+     forward runs ssd_scan), mixtral-8x7b with phase 8c's 4 layers (hd
+     128, GQA 4:1; its forward at a capacity that drops nothing), and a
+     ring-wrap case (dndm-text8 .reduced() with two "swa" blocks of
+     window 16, 48 positions through rings of 16 slots); launches
+     counted over the decoding alone: flash_decode once per attention
+     block and position, nothing else; ms per decode step.  zamba2 and
+     mixtral decode inside phases 8b and 8c, while their models are
+     loaded.  Phase 8e, with the xlstm and ring decodes, runs right after
+     phase 5c: a profiler that has traced the later paths drops kernel
+     events, so 8e's profiles are also held to each other (the blocks'
+     device time adds up to the call's within 15%) and retaken once;
   9. kernel times at the paths' shapes beside their bounds (bytes or f32
      flops on the CUDA cores; for flash_attention and ssd_scan also the
      tensor-core bound, their flops at a third of the TF32 rate), the
      plain versions and, for attention, scaled_dot_product_attention (a
      yardstick only; the port never calls it), flash_attention also at
      the ranked path's shape (8, 184, 8, 64), decode_scores also at
-     (4, 256, 32000).  Two readings: ``ms`` launch-paced, the host
+     (4, 256, 32000), dndm_update also at (4, 256, 32000) and (4, 256,
+     50304), flash_decode at the mixtral decode shape (2, 32, 32, 8, 128)
+     and over a ring of 4096 slots, beside scaled_dot_product_attention
+     with a query of length 1 and the ring's bias as its mask.  Two
+     readings: ``ms`` launch-paced, the host
      enqueueing while the device runs (what a path pays per call), and
      ``device_ms`` with each timed run queued behind a busy-wait kernel
      (the kernels' own time), with ``host_ms`` the host's time per call
@@ -329,8 +369,34 @@ MIXTRAL_PROFILE_T = 10
 ROUTE_FLIP_SHARE = 0.01
 CARD_MEMORY_BYTES = 80e9
 
-# the reduced zoo sweep (phase 8d): one dndm batch per buildable config
+# the reduced zoo sweep (phase 8d): one dndm batch per config
 ZOO_B, ZOO_N, ZOO_T = 2, 64, 20
+
+# the xlstm path (phase 8e): xlstm-350m at every published width and
+# depth; its parameter count by the JAX package's eval_shape; the chunk
+# of the chunked mLSTM form the parallel form is held against
+XLSTM_PARAMS = 508_171_264
+XLSTM_REQUESTS, XLSTM_LEN, XLSTM_BATCH, XLSTM_T = 4, 256, 4, 50
+XLSTM_CHUNK = 64
+# the profiled xlstm blocks' device time must match the profiled call's
+# within this share
+PROFILE_SUM_TOL = 0.15
+
+# decode on the card (phase 8f): DECODE_POS positions of DECODE_B rows
+# through the caches, one token at a time, against forward(causal=True):
+# max |decode - forward| <= DECODE_REL * max |forward| + DECODE_ABS.  The
+# ring-wrap case: RING_POS positions through a ring of RING_WINDOW slots
+DECODE_B, DECODE_POS = 2, 32
+DECODE_REL, DECODE_ABS = 1e-3, 2e-4
+RING_WINDOW, RING_POS = 16, 48
+# flash_decode vs plain (phase 4b): (B, L, H, KV, hd, pos, window); rings
+# of 4096 and of 16 slots (wrapped: pos >= L), and the decode paths'
+# shapes (zamba2's shared block, mixtral's window)
+K2D_CASES = [(2, 4096, 12, 12, 64, 4095, 0), (2, 4096, 32, 32, 80, 6000, 0),
+             (2, 4096, 32, 8, 128, 4095, 4096), (2, 16, 12, 12, 64, 40, 0),
+             (2, 16, 32, 32, 80, 47, 16), (2, 16, 32, 8, 128, 31, 16),
+             (2, 32, 32, 32, 80, 31, 0), (2, 32, 32, 8, 128, 31, 4096),
+             (2, 16, 4, 2, 64, 47, 16)]
 
 SWEEP_B, SWEEP_N, SWEEP_T, SWEEP_STRIDE = 4, 64, 50, 2
 DECODE_TOKENS_METHODS = frozenset({
@@ -390,7 +456,8 @@ def ptxas_summary(log: str) -> list[str]:
             mangled = m.group(1)
             base = re.search(r"(dndm_update_(?:warp|block)_kernel"
                              r"|decode_scores_(?:warp|block)_kernel"
-                             r"|flash_attention_kernel|ssd_state_kernel"
+                             r"|flash_attention_kernel|flash_decode_kernel"
+                             r"|ssd_state_kernel"
                              r"|ssd_carry_kernel|ssd_output_kernel)",
                              mangled)
             dtype = ("bf16" if "bfloat16" in mangled else
@@ -534,6 +601,33 @@ def check_flash_attention(g) -> tuple[int, float]:
     return 2 * len(K2_CASES), main_err
 
 
+def check_flash_decode(g) -> tuple[int, float]:
+    """Kernel vs plain (ref.decode_attention) on the card at flash's bars
+    (f32 1e-4; bf16 rtol 2e-2 and atol 2e-2 * min(1, max |plain|), as a
+    long ring's softmax spreads over ~1,500 keys and its outputs are about
+    0.03); returns (cases, max f32 error)."""
+    max_err = 0.0
+    for B, L, H, KV, hd, pos, window in K2D_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, 1, H, hd, generator=g, device="cuda").to(dt)
+            k = torch.randn(B, L, KV, hd, generator=g, device="cuda").to(dt)
+            v = torch.randn(B, L, KV, hd, generator=g, device="cuda").to(dt)
+            a = k2_ops.flash_decode(q, k, v, pos=pos, window=window)
+            b = k2_ref.decode_attention(q, k, v, pos, window)
+            torch.cuda.synchronize()
+            err = float((a.float() - b.float()).abs().max())
+            tol = K2_TOL[dt]
+            atol = (tol if dt == torch.float32
+                    else tol * min(1.0, float(b.float().abs().max())))
+            if not torch.allclose(a.float(), b.float(), atol=atol, rtol=tol):
+                raise AssertionError(
+                    f"flash_decode != plain at {(B, L, H, KV, hd)} {dt} "
+                    f"pos={pos} window={window}: max err {err}")
+            if dt == torch.float32:
+                max_err = max(max_err, err)
+    return 2 * len(K2D_CASES), max_err
+
+
 def check_decode_scores(g) -> tuple[int, float]:
     """Kernel vs plain on the card: tokens bitwise, scores within
     K3_TOL; returns (cases, max |score difference|)."""
@@ -627,6 +721,7 @@ def check_ssd_scan(g) -> dict:
 
 KERNELS = {"dndm_update": k1_ops.dndm_update,
            "flash_attention": k2_ops.flash_attention,
+           "flash_decode": k2_ops.flash_decode,
            "decode_scores": k3_ops.decode_scores,
            "ssd_scan": k4_ops.ssd_scan}
 
@@ -1663,6 +1758,74 @@ def ssd_flops(B, S, H, P, N, L) -> int:
             + B * H * (nc * L * (L + 1) * P + (nc - 1) * 4 * L * N * P))
 
 
+def dndm_update_times(g, B: int, S: int, K: int, T: int):
+    """dndm_update at (B, S, K) with Gumbel noise, f32, version 1, as a
+    DNDM path of T steps gives it: ``ms`` and ``plain_ms`` launch-paced in
+    the order plain, kernel, kernel, plain; ``device_ms`` by
+    ``device_time_ms``; the bytes bound.  Returns the record and the
+    (logits, mask, noise) it ran on."""
+    logits = torch.randn(B, S, K, generator=g, device="cuda")
+    x = torch.full((B, S), K - 1, dtype=torch.int32, device="cuda")
+    tau = torch.randint(1, T + 1, (1, S), generator=g, device="cuda",
+                        dtype=torch.int32).expand(B, S).contiguous()
+    mask = torch.zeros(K, device="cuda")
+    mask[K - 1] = -1e9
+    noise = gumbel_noise(g, (B, S, K), "cuda")
+    t = int(tau[0, 0])
+    kw = dict(mask=mask, gumbel=noise, version=1, temperature=1.0)
+    k1 = lambda: k1_ops.dndm_update(logits, x, tau, t, **kw)  # noqa: E731
+    k1p = lambda: k1_ref.dndm_update(logits, x, tau, t, **kw)  # noqa: E731
+    p1, m1, m2, p2 = (time_ms(f, 50) for f in (k1p, k1, k1, k1p))
+    d1, d2 = (device_time_ms(k1, 50) for _ in range(2))
+    return {"shape": [B, S, K], "ms": statistics.median([m1, m2]),
+            **device_fields(d1, d2),
+            "plain_ms": statistics.median([p1, p2]),
+            # logits + gumbel read, mask read, x and tau read, tokens out;
+            # per element + mask, + gumbel, compare
+            **bound(B * S * K * 8 + K * 4 + B * S * 12, B * S * K * 3),
+            "library_ms": None}, (logits, mask, noise)
+
+
+def measure_flash_decode(g) -> dict:
+    """flash_decode at the mixtral decode path's shape, (B, L, H, KV, hd) =
+    (2, 32, 32, 8, 128) with window 4096, and over a full ring of 4096
+    slots at that shape, f32, pos = L - 1 (every slot holds a key):
+    kernel, plain and scaled_dot_product_attention (q of length 1, the
+    ring bias as its float mask, enable_gqa) as ``measure_zamba`` takes
+    them, and the bounds.  Bytes: q and the output at 32 heads, k and v
+    at 8, each read once."""
+    out = {}
+    B, H, KV, hd, W = DECODE_B, 32, 8, 128, 4096
+    for name, L in (("path", DECODE_POS), ("long_ring", 4096)):
+        pos = L - 1
+        q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
+        k, v = (torch.randn(B, L, KV, hd, generator=g, device="cuda")
+                for _ in range(2))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        mask = k2_ref.ring_bias(pos, L, W, "cuda")
+        kd = lambda: k2_ops.flash_decode(  # noqa: E731
+            q, k, v, pos=pos, window=W)
+        kp = lambda: k2_ref.decode_attention(q, k, v, pos, W)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        err = float((kd() - lib().transpose(1, 2)).abs().max())
+        p1, m1, l1, m2, l2, p2 = (time_ms(f, 200)
+                                  for f in (kp, kd, lib, kd, lib, kp))
+        d1, dl1, d2, dl2 = (device_time_ms(f, 200)
+                            for f in (kd, lib, kd, lib))
+        n_bytes = 4 * (2 * B * H * hd + 2 * B * L * KV * hd)
+        out[name] = {"shape": [B, L, H, KV, hd], "window": W, "pos": pos,
+                     "ms": statistics.median([m1, m2]),
+                     **device_fields(d1, d2),
+                     "plain_ms": statistics.median([p1, p2]),
+                     **bound(n_bytes, 4 * B * H * L * hd),
+                     "library_ms": statistics.median([l1, l2]),
+                     "library_device_ms": statistics.median([dl1[0],
+                                                             dl2[0]]),
+                     "max_abs_err_vs_library": err}
+    return out
+
+
 def measure_zamba(g) -> dict:
     """Kernel, plain and library times at the zamba2 path's shapes:
     ssd_scan at (4, 256, 80, 64, 64, 128), flash_attention at (4, 256, 32,
@@ -1708,25 +1871,8 @@ def measure_zamba(g) -> dict:
         "library_device_ms": statistics.median([dl3[0], dl4[0]])}
 
     K = 32000
-    logits = torch.randn(B, S, K, generator=g, device="cuda")
-    x = torch.full((B, S), K - 1, dtype=torch.int32, device="cuda")
-    tau = torch.randint(1, ZAMBA_T + 1, (1, S), generator=g, device="cuda",
-                        dtype=torch.int32).expand(B, S).contiguous()
-    mask = torch.zeros(K, device="cuda")
-    mask[K - 1] = -1e9
-    noise = gumbel_noise(g, (B, S, K), "cuda")
-    t = int(tau[0, 0])
-    kw = dict(mask=mask, gumbel=noise, version=1, temperature=1.0)
-    k1 = lambda: k1_ops.dndm_update(logits, x, tau, t, **kw)  # noqa: E731
-    k1p = lambda: k1_ref.dndm_update(logits, x, tau, t, **kw)  # noqa: E731
-    p5, m5, m6, p6 = (time_ms(f, 50) for f in (k1p, k1, k1, k1p))
-    d5, d6 = (device_time_ms(k1, 50) for _ in range(2))
-    out["dndm_update"] = {
-        "shape": [B, S, K], "ms": statistics.median([m5, m6]),
-        **device_fields(d5, d6),
-        "plain_ms": statistics.median([p5, p6]),
-        **bound(B * S * K * 8 + K * 4 + B * S * 12, B * S * K * 3),
-        "library_ms": None}
+    out["dndm_update"], (logits, mask, noise) = dndm_update_times(
+        g, B, S, K, ZAMBA_T)
 
     # decode_scores at the same shape and noise (no path runs it there
     # yet: the ranked samplers on a 32000-entry vocabulary would)
@@ -1986,8 +2132,8 @@ def mixtral_phase(g, card: str) -> tuple[dict, dict]:
     6's checks and the launch counts (flash_attention once per "moe"
     block per network call); the block-by-block denoiser check; the MoE
     layer's synchronising calls and time split; one profiled sampler run;
-    flash_attention at the path's shape; peak memory.  Returns the path's
-    record and its launch counts."""
+    flash_attention at the path's shape; phase 8f's decode check; peak
+    memory.  Returns the path's record and its launch counts."""
     torch.cuda.reset_peak_memory_stats()
     model, info = mixtral_model()
     print(f"mixtral path ({card}): {info['params'] / 1e9:.3f} B parameters "
@@ -2021,6 +2167,7 @@ def mixtral_phase(g, card: str) -> tuple[dict, dict]:
         MIXTRAL_LEN, top=10)
     prof["device_busy_share"] = prof["device_ms_per_call"] / ms_call
     flash = measure_mixtral_flash(g)
+    decode = decode_check(f"mixtral-8x7b ({MIXTRAL_LAYERS} layers)", model)
     peak = torch.cuda.max_memory_allocated()
     if peak >= CARD_MEMORY_BYTES:
         raise AssertionError(f"mixtral path peak memory {peak / 1e9:.1f} GB")
@@ -2039,12 +2186,12 @@ def mixtral_phase(g, card: str) -> tuple[dict, dict]:
         "compile_seconds": max(r.compile_seconds for r in done.values()),
         "denoiser": {k: v for k, v in den.items() if k != "moe_input"},
         "moe_sync": syncs, "moe_split": split, "profile": prof,
-        "flash_attention": flash,
+        "flash_attention": flash, "decode": decode,
         "max_memory_allocated_gb": peak / 1e9}, counts
 
 
 def zoo_sweep() -> dict:
-    """Phase 8d: every registered config but xlstm-350m, at
+    """Phase 8d: every registered config, at
     ``.reduced(attn_impl="pallas")`` with random weights from seed 0,
     through one GenerationEngine dndm batch (B ZOO_B, N ZOO_N, T ZOO_T,
     absorbing noise; the audio and vision configs with the stub's
@@ -2054,8 +2201,6 @@ def zoo_sweep() -> dict:
     included)."""
     out = {}
     for arch in configs_lib.list_archs():
-        if arch == "xlstm-350m":
-            continue
         cfg = configs_lib.get(arch).reduced(attn_impl="pallas")
         model = Model(cfg, device="cuda", seed=0)
         engine = GenerationEngine(model, EngineConfig(
@@ -2095,6 +2240,241 @@ def zoo_sweep() -> dict:
         del model, engine
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------
+# The xlstm path (phase 8e) and decode on the card (phase 8f).
+
+@contextlib.contextmanager
+def swapped_cfg(modules, cfg):
+    """Run ``modules`` with ``cfg`` in place of their own config."""
+    saved = [m.cfg for m in modules]
+    for m in modules:
+        m.cfg = cfg
+    try:
+        yield
+    finally:
+        for m, c in zip(modules, saved):
+            m.cfg = c
+
+
+GEMM_RE = re.compile(r"gemm|gemv|xmma", re.I)
+
+
+def profile_call(fn, top: int = 6) -> dict:
+    """One call of ``fn`` (after a warm one) under torch.profiler: device
+    ms, kernel launches, the GEMM kernels' ms (by name) and the kernels
+    that take most of the time."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    dev_us = [e.self_device_time_total for e in kernels]
+    order = sorted(range(len(kernels)), key=lambda i: -dev_us[i])[:top]
+    return {"device_ms": sum(dev_us) / 1e3,
+            "launches": sum(e.count for e in kernels),
+            "gemm_ms": sum(u for e, u in zip(kernels, dev_us)
+                           if GEMM_RE.search(e.key)) / 1e3,
+            "top_kernels": [{"kernel": kernels[i].key[:72],
+                             "ms": dev_us[i] / 1e3,
+                             "launches": kernels[i].count} for i in order]}
+
+
+def xlstm_denoiser(model, batch: int, n_tok: int) -> dict:
+    """The full-width denoiser's logits with mLSTM's parallel form against
+    the chunked form (mlstm_chunk XLSTM_CHUNK) on the same weights, at the
+    repo's logits bar (atol 3e-4, rtol 3e-3); then one network call, one
+    mLSTM block and one sLSTM block (both directions, the denoiser's
+    mode), each under torch.profiler."""
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size - 1, (batch, n_tok), generator=g,
+                        device="cuda", dtype=torch.int32)
+    t = torch.rand(batch, generator=g, device="cuda")
+    fn = model.denoise_fn()
+    with torch.inference_mode():
+        par = fn(tok, t, None)
+        with swapped_cfg([b.mixer for k, b in zip(cfg.block_pattern,
+                                                   model.blocks)
+                          if k == "mlstm"],
+                         cfg.replace(mlstm_chunk=XLSTM_CHUNK)):
+            chunked = fn(tok, t, None)
+        torch.cuda.synchronize()
+    err = float((chunked - par).abs().max())
+    if not (torch.isfinite(par).all() and torch.isfinite(chunked).all()
+            and torch.allclose(chunked, par, atol=3e-4, rtol=3e-3)):
+        raise AssertionError(f"xlstm parallel vs chunked logits: max err "
+                             f"{err}")
+    h = torch.randn(batch, n_tok, cfg.d_model, generator=g, device="cuda")
+    m_blk = model.blocks[cfg.block_pattern.index("mlstm")]
+    s_blk = model.blocks[cfg.block_pattern.index("slstm")]
+    n_m, n_s = (cfg.block_pattern.count(k) for k in ("mlstm", "slstm"))
+    # a profile can drop kernel events: the blocks' device time must add
+    # up to the call's (the head and the embedding are ~2% of it), else
+    # the profiles are taken once more, and a second miss fails
+    for _ in range(PROFILE_ATTEMPTS):
+        profs = {"profile_call": profile_call(lambda: fn(tok, t, None)),
+                 "profile_mlstm_block": profile_call(
+                     lambda: m_blk(h, causal=False)),
+                 "profile_slstm_block": profile_call(
+                     lambda: s_blk(h, causal=False))}
+        blocks_ms = (n_m * profs["profile_mlstm_block"]["device_ms"]
+                     + n_s * profs["profile_slstm_block"]["device_ms"])
+        call_ms = profs["profile_call"]["device_ms"]
+        if abs(blocks_ms - call_ms) <= PROFILE_SUM_TOL * call_ms:
+            break
+    else:
+        raise AssertionError(f"xlstm profiles: the blocks' {blocks_ms:.2f} "
+                             f"ms against the call's {call_ms:.2f} ms")
+    return {"logits_max_err_chunked_vs_parallel": err,
+            "logits_max_abs": float(par.abs().max()),
+            "chunk": XLSTM_CHUNK, **profs}
+
+
+def xlstm_phase(card: str) -> tuple[dict, dict, Model]:
+    """Phase 8e: xlstm-350m at every published width and depth, random
+    weights from seed 0, f32, served with dndm through the port's entry
+    points with phase 6's checks (dndm_update once per network call at
+    K = 50304, no other kernel); the parallel form against the chunked;
+    the profiled call, mLSTM block and sLSTM block, and the device-time
+    split.  Returns the path's record, its launch counts and the model
+    (phase 8f decodes it)."""
+    cfg = configs_lib.get("xlstm-350m").replace(attn_impl="pallas")
+    model = Model(cfg, device="cuda", seed=0)
+    if model.param_count() != XLSTM_PARAMS:
+        raise AssertionError(f"xlstm-350m: {model.param_count()} "
+                             f"parameters, not {XLSTM_PARAMS}")
+    print(f"xlstm path ({card}): {model.param_count()} parameters "
+          f"({4 * model.param_count() / 1e9:.2f} GB)", flush=True)
+    model, sched, done, drain_s, counts = main_path(
+        n_req=XLSTM_REQUESTS, n_len=XLSTM_LEN, batch=XLSTM_BATCH,
+        steps=XLSTM_T, model=model)
+    stats = check_main_path(model, sched, done, counts, XLSTM_REQUESTS,
+                            XLSTM_LEN)
+    ms_call = 1e3 * stats["timed_wall_s"] / stats["timed_nfe"]
+    print(f"xlstm path: {counts}; NFE {stats['timed_nfe']}; "
+          f"{ms_call:.2f} ms per network call, "
+          f"{len(done) / drain_s:.3f} req/s", flush=True)
+    den = xlstm_denoiser(model, XLSTM_BATCH, XLSTM_LEN)
+    call, mb, sb = (den[k] for k in ("profile_call", "profile_mlstm_block",
+                                     "profile_slstm_block"))
+    n_m = cfg.block_pattern.count("mlstm")
+    n_s = cfg.block_pattern.count("slstm")
+    split = {"call_device_ms": call["device_ms"],
+             "call_gemm_ms": call["gemm_ms"],
+             "mlstm_layers_ms": n_m * mb["device_ms"],
+             "mlstm_gemm_ms": n_m * mb["gemm_ms"],
+             "mlstm_elementwise_ms": n_m * (mb["device_ms"] - mb["gemm_ms"]),
+             "slstm_layers_ms": n_s * sb["device_ms"],
+             "slstm_gemm_ms": n_s * sb["gemm_ms"],
+             "slstm_launches": n_s * sb["launches"],
+             "device_busy_share": call["device_ms"] / ms_call}
+    print(f"xlstm denoiser: chunked vs parallel logits max err "
+          f"{den['logits_max_err_chunked_vs_parallel']:.3g}; one call "
+          f"{call['device_ms']:.2f} ms of kernels in {call['launches']} "
+          f"launches (GEMMs {call['gemm_ms']:.2f}), busy "
+          f"{100 * split['device_busy_share']:.1f}%; mLSTM layers "
+          f"{split['mlstm_layers_ms']:.2f} ms (elementwise "
+          f"{split['mlstm_elementwise_ms']:.2f}); sLSTM layers "
+          f"{split['slstm_layers_ms']:.2f} ms in {split['slstm_launches']} "
+          "launches", flush=True)
+    line = {
+        "xlstm_path": f"xlstm-350m full width and depth, dndm "
+                      f"T={XLSTM_T}, absorbing, sample",
+        "card": card, "params": model.param_count(),
+        "requests": len(done), "tokens_per_request": XLSTM_LEN,
+        "batches": stats["batches"], "nfe_timed": stats["timed_nfe"],
+        "nfe_thm_d1": XLSTM_T * (1 - (1 - 1 / XLSTM_T) ** XLSTM_LEN),
+        "nfe_warmup": stats["warmup_nfe"], "nfe_total": stats["total_nfe"],
+        "launches": counts, "drain_s": drain_s,
+        "timed_wall_s": stats["timed_wall_s"],
+        "req_per_s": len(done) / drain_s, "ms_per_network_call": ms_call,
+        "compile_seconds": max(r.compile_seconds for r in done.values()),
+        "denoiser": den, "split": split}
+    del sched
+    return line, counts, model
+
+
+def decode_check(name: str, model, n_pos: int = DECODE_POS) -> dict:
+    """Phase 8f for one model: DECODE_B rows of ``n_pos`` random tokens
+    decoded one at a time through the port's caches (``init_cache(B,
+    n_pos)``; "pallas" attention through flash_decode) against
+    ``forward(causal=True)`` on the same tokens, at the phase's bar; the
+    launch counts, zeroed just before the decoding and read just after:
+    flash_decode once per attention-family block and position, no other
+    kernel.  A "moe" model's forward runs at a capacity that drops no
+    assignment (capacity_factor E / K), as one token at a time never
+    drops one.  Reports ms per decode step (median, synchronised each
+    step)."""
+    from repro_torch.models.moe import MoE
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(2)
+    tok = torch.randint(0, cfg.vocab_size - 1, (DECODE_B, n_pos),
+                        generator=g, device="cuda", dtype=torch.int32)
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    no_drop = (cfg.replace(capacity_factor=cfg.n_experts
+                           / cfg.experts_per_token) if moes else cfg)
+    steps = []
+    with torch.inference_mode(), swapped_cfg(moes, no_drop):
+        full = model(tok, causal=True)
+        cache = model.init_cache(DECODE_B, n_pos)
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = []
+        for i in range(n_pos):
+            ts = time.perf_counter()
+            logits, cache = model.decode_step(tok[:, i:i + 1], cache, i)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - ts))
+            outs.append(logits)
+        counts = {k: fn.launches for k, fn in KERNELS.items()}
+    dec = torch.cat(outs, 1)
+    err = float((dec - full).abs().max())
+    scale = float(full.abs().max())
+    if not torch.isfinite(dec).all() or err > DECODE_REL * scale + DECODE_ABS:
+        raise AssertionError(f"decode {name}: max |decode - forward| {err} "
+                             f"over max |forward| {scale}")
+    n_attn = sum(k in ("attn", "swa", "shared_attn", "moe")
+                 for k in cfg.block_pattern)
+    want = {k: 0 for k in KERNELS}
+    want["flash_decode"] = n_attn * n_pos
+    if counts != want:
+        raise AssertionError(f"decode {name}: launches {counts}, expected "
+                             f"{want}")
+    ring = [c["k"].shape[1] for c in cache if "k" in c]
+    rec = {"model": name, "positions": n_pos, "batch": DECODE_B,
+           "ring_slots": sorted(set(ring)), "max_abs_err": err,
+           "max_abs_forward": scale, "launches": counts,
+           "ms_per_step": statistics.median(steps),
+           "ms_first_step": steps[0], "seconds": time.perf_counter() - t0}
+    print(f"decode {name}: {n_pos} positions, max |decode - forward| "
+          f"{err:.3g} (max |forward| {scale:.3g}); "
+          f"{rec['ms_per_step']:.2f} ms per step; {counts['flash_decode']} "
+          f"flash_decode launches; {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+def ring_decode() -> dict:
+    """Phase 8f's ring-wrap case: dndm-text8 at ``.reduced()`` with two
+    "swa" blocks of window RING_WINDOW, RING_POS positions through rings
+    of RING_WINDOW slots (so each wraps twice)."""
+    cfg = configs_lib.get("dndm-text8").reduced(
+        n_layers=2, block_pattern=("swa", "swa"),
+        sliding_window=RING_WINDOW, attn_impl="pallas")
+    model = Model(cfg, device="cuda", seed=0)
+    rec = decode_check("ring (dndm-text8 reduced, swa window "
+                       f"{RING_WINDOW})", model, n_pos=RING_POS)
+    if rec["ring_slots"] != [RING_WINDOW]:
+        raise AssertionError(f"ring slots {rec['ring_slots']}")
+    return rec
+
 
 
 def launch_floor(name: str, logits, mask, gumbel, x=None, tau=None,
@@ -2618,6 +2998,11 @@ def main() -> int:
     n2, k2_err = check_flash_attention(g)
     print(f"flash_attention: {n2} cases within tolerance (f32 1e-4, bf16 "
           f"2e-2); max err at (8,256,12,64) f32 {k2_err:.3g}", flush=True)
+    # 4b. flash_decode vs plain
+    n2d, k2d_err = check_flash_decode(g)
+    print(f"flash_decode: {n2d} cases within tolerance (f32 1e-4, bf16 "
+          f"2e-2 scaled by min(1, max |plain|)); max f32 err "
+          f"{k2d_err:.3g}", flush=True)
     # 5. decode_scores vs plain
     n3, k3_err = check_decode_scores(g)
     print(f"decode_scores: {n3} cases, tokens bitwise equal to plain, "
@@ -2635,6 +3020,19 @@ def main() -> int:
               + "; ".join(f"{d['kernel']} x{d['launches']:g} "
                           f"{d['us']:.1f} us" for d in ks), flush=True)
     lap("kernel_checks")
+
+    # 8e. the xlstm path, first: its profiles need a profiler that has not
+    # yet traced the other paths (a late one dropped kernel events)
+    card = gpu_name_and_power()
+    xl_line, xl_counts, xl_model = xlstm_phase(card)
+    lap("xlstm_path")
+    # 8f. decode on the card: xlstm-350m, then the ring-wrap case (zamba2
+    # and mixtral decode in their phases, while their models are loaded)
+    decode = {"xlstm-350m": decode_check("xlstm-350m", xl_model)}
+    del xl_model
+    torch.cuda.empty_cache()
+    decode["ring"] = ring_decode()
+    lap("decode_xlstm_and_ring")
 
     # 6. the main path
     model, sched, done, drain_s, counts = main_path()
@@ -2701,7 +3099,6 @@ def main() -> int:
 
     # 15. training: full-width dndm-text8, its checkpoint served on the
     # kernels; a few prefixed dndm-mt steps
-    card = gpu_name_and_power()
     train = training_phase(untrained_ll, card)
     for name, r in train.items():
         print(f"training {name} ({card}): {r['ms_per_step']:.2f} ms per "
@@ -2736,19 +3133,24 @@ def main() -> int:
     z_prof = profile_run(GenerationEngine(z_model, EngineConfig(
         method="dndm", steps=ZAMBA_PROFILE_T, noise_kind="absorbing",
         x0_mode="sample"), device="cuda"), "dndm", ZAMBA_BATCH, ZAMBA_LEN)
+    lap("zamba2_logits_and_profile")
+    # 8f. decode on the card, while the model is loaded
+    z_decode = decode_check("zamba2-2.7b", z_model)
     del z_model, z_sched
     torch.cuda.empty_cache()
-    lap("zamba2_logits_and_profile")
+    lap("decode_zamba2")
 
     # 8c. the mixtral path (the zamba2 model is freed: this one takes
     # 24.4 GB)
     mx_line, mx_counts = mixtral_phase(g, card)
     lap("mixtral_path")
-    # 8d. every buildable config, reduced, through one dndm batch
+    # 8d. every config, reduced, through one dndm batch
     zoo = zoo_sweep()
     print(f"zoo sweep: {len(zoo)} configs; NFE "
           f"{ {k: v['nfe'] for k, v in zoo.items()} }", flush=True)
     lap("zoo_sweep")
+    decode.update({"zamba2-2.7b": z_decode,
+                   "mixtral-8x7b": mx_line["decode"]})
 
     def zoo_launches(name: str) -> int:
         return sum(r["launches"][name] for r in zoo.values())
@@ -2756,6 +3158,8 @@ def main() -> int:
     # 9. times
     t = measure(g)
     tz = measure_zamba(g)
+    tfd = measure_flash_decode(g)
+    t50304, _ = dndm_update_times(g, XLSTM_BATCH, XLSTM_LEN, 50304, XLSTM_T)
     lap("kernel_times")
     kernels = [
         {"name": "dndm_update", "route": "cuda",
@@ -2769,7 +3173,9 @@ def main() -> int:
          "launches_training": sv["launches"]["dndm_update"],
          "launches_mixtral": mx_counts["dndm_update"],
          "launches_zoo": zoo_launches("dndm_update"),
-         **t["dndm_update"], "at_k32000": tz["dndm_update"]},
+         "launches_xlstm": xl_counts["dndm_update"],
+         **t["dndm_update"], "at_k32000": tz["dndm_update"],
+         "at_k50304": t50304},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
@@ -2782,6 +3188,15 @@ def main() -> int:
          "launches_mixtral": mx_counts["flash_attention"],
          "launches_zoo": zoo_launches("flash_attention"),
          **t["flash_attention"], "at_mixtral": mx_line["flash_attention"]},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+         "launches": sum(r["launches"]["flash_decode"]
+                         for r in decode.values()),
+         "launches_by_model": {k: r["launches"]["flash_decode"]
+                               for k, r in decode.items()},
+         "max_abs_err": k2d_err, **tfd["path"],
+         "at_long_ring": tfd["long_ring"]},
         {"name": "decode_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_scores.cu",
          "replaces": "src/repro/kernels/decode_scores/kernel.py:35",
@@ -2863,6 +3278,8 @@ def main() -> int:
     print(json.dumps(mt_line))
     print(json.dumps(z_line))
     print(json.dumps(mx_line))
+    print(json.dumps(xl_line))
+    print(json.dumps({"decode": {"card": card, **decode}}))
     print(json.dumps({"zoo_sweep": zoo}))
     print(json.dumps({"registry_sweep": sweep}))
     card = gpu_name_and_power()

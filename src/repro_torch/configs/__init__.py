@@ -5,8 +5,7 @@ The port's own copy of ``repro.configs``: the ten assigned architectures
 fields and order.  ``for_long_context`` swaps full attention for
 sliding-window attention, the documented substitute that makes
 ``long_500k`` lowerable for otherwise-quadratic architectures.  Every
-config builds a ``Model`` except ``xlstm-350m``, whose blocks come with a
-later slice.
+config builds a ``Model``.
 """
 from __future__ import annotations
 

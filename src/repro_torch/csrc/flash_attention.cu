@@ -1,4 +1,5 @@
-// Flash attention (online softmax) for Hopper, sm_90a, on the tensor cores.
+// Flash attention (online softmax) for Hopper, sm_90a, on the tensor cores,
+// and its decode form (flash_decode, at the end of the file).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // kernel.py: _flash_kernel (launcher flash_attention_kernel).  Same
@@ -338,6 +339,215 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace
 
+namespace {
+
+// ---------------------------------------------------------------------
+// Decode form: one query row per (b, h) over a ring-buffer KV cache.
+//
+// Replaces _flash_kernel as repro/models/attention.py:decode_step calls
+// it (through _inner, attn_impl="pallas"): Sq = 1, Sk = L, and an additive
+// (B, 1, L) bias of the ring buffer.  Here that bias is computed in the
+// kernel from (pos, L, window), not read: slot i holds position
+// pos - back, back = (pos mod L - i) mod L, and gets -1e9 where that
+// position is negative (back > pos) or, with a window, where back >=
+// window.  f32 (m, l, acc), l clamped at 1e-30, the output in q's dtype.
+// Grouped-query attention reads kv head h / (H / KV).
+//
+// What bounds it: bytes.  Each query head reads its kv head's L x hd keys
+// and values once for 4 L hd flops, 1 flop per byte in f32; at (B, L, H,
+// KV, hd) = (2, 4096, 32, 8, 128) the caches are 67.1 MB, 0.020 ms at
+// 3.35 TB/s.
+//
+// Design (simple first; a split of L over several blocks for long caches
+// is later work): one block of 8 warps per (b, h).  Warp w takes the keys
+// in tiles of 32, tiles w, w + 8, ...: lane j of a tile computes its own
+// key's score (the k row by 16-byte loads against q in registers), the
+// warp joins the 32 scores into its running (m, l) with shuffles, the
+// tile's p go through shared memory to the P v step, where lane d owns
+// output dims d, d + 32, ... (coalesced reads of each v row), and at the
+// end the 8 warps' (m, l, acc) are joined in shared memory.  Scores are in
+// base 2 (times log2 e), as in the kernel above.
+
+constexpr int kDecodeWarps = 8;
+constexpr int kDecodeThreads = 32 * kDecodeWarps;
+
+// q . k for one cached key row, f32; four partial sums.
+template <typename T, int HD>
+__device__ __forceinline__ float row_dot(const T* __restrict__ kp,
+                                         const float (&q)[HD]) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(kp + d);
+      s[0] = fmaf(q[d], kv.x, s[0]);
+      s[1] = fmaf(q[d + 1], kv.y, s[1]);
+      s[2] = fmaf(q[d + 2], kv.z, s[2]);
+      s[3] = fmaf(q[d + 3], kv.w, s[3]);
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < HD; d += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(kp + d);
+      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(k2[i]);
+        s[i] = fmaf(q[d + 2 * i], f.x, s[i]);
+        s[i] = fmaf(q[d + 2 * i + 1], f.y, s[i]);
+      }
+    }
+  }
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kDecodeThreads)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o, int L, int H,
+                    int KV, long long qsb, long long qsh, Strides ks_,
+                    Strides vs_, long long osb, long long osh, int pos,
+                    int window, float scale) {
+  constexpr int kD = (HD + 31) / 32;  // output dims per lane
+  __shared__ float p_s[kDecodeWarps][32];
+  __shared__ float m_s[kDecodeWarps], l_s[kDecodeWarps];
+  __shared__ float acc_s[kDecodeWarps][HD];
+
+  const int b = blockIdx.y;
+  const int h = blockIdx.x;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float scale2 = scale * kLog2e, neg2 = kNeg * kLog2e;
+  const int slot = pos % L;
+
+  float qf[HD];
+  {
+    const T* qp = q + b * qsb + h * qsh;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) qf[d] = tc::to_float(qp[d]);
+  }
+  const T* kb = k + b * ks_.b + kvh * ks_.h;
+  const T* vb = v + b * vs_.b + kvh * vs_.h;
+
+  float m = -INFINITY, l = 0.f, acc[kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) acc[i] = 0.f;
+
+  for (int j0 = warp * 32; j0 < L; j0 += kDecodeWarps * 32) {
+    const int j = j0 + lane;
+    float s = -INFINITY;  // keys past L never enter the sum
+    if (j < L) {
+      const int back = ((slot - j) % L + L) % L;
+      const bool ok = back <= pos && (window <= 0 || back < window);
+      s = row_dot<T, HD>(kb + static_cast<long long>(j) * ks_.s, qf) *
+              scale2 +
+          (ok ? 0.f : neg2);
+    }
+    float tmax = s;
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+    // key j0 < L is in the tile, so m_new is finite and the first tile's
+    // alpha is exp(-inf) = 0
+    const float m_new = fmaxf(m, tmax);
+    const float alpha = exp2f(m - m_new);
+    const float p = exp2f(s - m_new);
+    float psum = p;
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      psum += __shfl_xor_sync(0xffffffffu, psum, off);
+    l = l * alpha + psum;
+    m = m_new;
+#pragma unroll
+    for (int i = 0; i < kD; ++i) acc[i] *= alpha;
+    p_s[warp][lane] = p;
+    __syncwarp();
+    const int n = min(32, L - j0);
+#pragma unroll 4
+    for (int jj = 0; jj < n; ++jj) {
+      const float pj = p_s[warp][jj];
+      const T* vp = vb + static_cast<long long>(j0 + jj) * vs_.s;
+#pragma unroll
+      for (int i = 0; i < kD; ++i) {
+        const int d = lane + 32 * i;
+        if (HD % 32 == 0 || d < HD)
+          acc[i] = fmaf(pj, tc::to_float(vp[d]), acc[i]);
+      }
+    }
+    __syncwarp();  // p_s is rewritten by the next tile
+  }
+
+  // join the warps: a warp that had no tile holds m = -inf, l = 0, acc = 0
+  if (lane == 0) {
+    m_s[warp] = m;
+    l_s[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < kD; ++i) {
+    const int d = lane + 32 * i;
+    if (HD % 32 == 0 || d < HD) acc_s[warp][d] = acc[i];
+  }
+  __syncthreads();
+  const int d = threadIdx.x;
+  if (d < HD) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) M = fmaxf(M, m_s[w]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float f = exp2f(m_s[w] - M);
+      num = fmaf(f, acc_s[w][d], num);
+      den = fmaf(f, l_s[w], den);
+    }
+    o[b * osb + h * osh + d] = tc::from_float<T>(num / fmaxf(den, 1e-30f));
+  }
+}
+
+template <typename T, int HD>
+int launch_decode_hd(const void* q, const void* k, const void* v, void* o,
+                     int B, int L, int H, int KV, long long qsb,
+                     long long qsh, Strides ks, Strides vs, long long osb,
+                     long long osh, int pos, int window, float scale,
+                     cudaStream_t stream) {
+  const dim3 grid(H, B);
+  flash_decode_kernel<T, HD><<<grid, kDecodeThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), L, H, KV, qsb, qsh, ks,
+      vs, osb, osh, pos, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_decode(const void* q, const void* k, const void* v, void* o,
+                  int B, int L, int H, int KV, int hd, long long qsb,
+                  long long qsh, long long ksb, long long kss, long long ksh,
+                  long long vsb, long long vss, long long vsh, long long osb,
+                  long long osh, int pos, int window, float scale,
+                  void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (L <= 0 || pos < 0 || KV <= 0 || H % KV != 0 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+#define DECODE_HD(N)                                                        \
+  case N:                                                                   \
+    return launch_decode_hd<T, N>(q, k, v, o, B, L, H, KV, qsb, qsh, ks, vs, \
+                                  osb, osh, pos, window, scale, st);
+    DECODE_HD(16)
+    DECODE_HD(32)
+    DECODE_HD(64)
+    DECODE_HD(80)
+    DECODE_HD(128)
+#undef DECODE_HD
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
 // C interface, bound with ctypes by repro_torch/kernels/flash_attention/
 // ops.py.  q, o: (B, S, H, hd); k, v: (B, S, KV, hd); strides in elements
 // for the first three axes, the last axis contiguous; k and v 16-byte
@@ -358,3 +568,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 FLASH_ENTRY(flash_attention_f32, float)
 FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
+
+// q, o: (B, 1, H, hd) with strides (b, h); k, v: (B, L, KV, hd) with
+// strides (b, s, h); the last axis contiguous, k and v 16-byte aligned with
+// strides that keep every row so (the wrapper checks).  pos >= 0 is the
+// query's position, window 0 for none.  Returns the launch's CUDA error
+// code (0 on success).
+#define DECODE_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
+                      int B, int L, int H, int KV, int hd, long long qsb,    \
+                      long long qsh, long long ksb, long long kss,           \
+                      long long ksh, long long vsb, long long vss,           \
+                      long long vsh, long long osb, long long osh, int pos,  \
+                      int window, float scale, void* stream) {               \
+    return launch_decode<T>(q, k, v, o, B, L, H, KV, hd, qsb, qsh, ksb, kss, \
+                            ksh, vsb, vss, vsh, osb, osh, pos, window,       \
+                            scale, stream);                                  \
+  }
+
+DECODE_ENTRY(flash_decode_f32, float)
+DECODE_ENTRY(flash_decode_bf16, __nv_bfloat16)

@@ -40,6 +40,7 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _DNDM = [_P] * 6 + [_LL, _I, _I, _I, _F, _P]
 _FLASH = [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_I, _I, _F, _P]
+_DECODE = [_P] * 4 + [_I] * 5 + [_LL] * 10 + [_I, _I, _F, _P]
 _SCORES = [_P] * 5 + [_LL, _I, _F, _P]
 _SSD = [_P] * 9 + [_I] * 6 + [_LL] * 13 + [_P]
 ARGTYPES = {
@@ -51,6 +52,10 @@ ARGTYPES = {
     # stream
     "flash_attention_f32": _FLASH,
     "flash_attention_bf16": _FLASH,
+    # q, k, v, o, B, L, H, KV, hd, 10 strides (q and o: b, h; k and v: b,
+    # s, h), pos, window, scale, stream
+    "flash_decode_f32": _DECODE,
+    "flash_decode_bf16": _DECODE,
     # logits, gumbel, mask, tok, score, rows, K, temperature, stream
     "decode_scores_f32": _SCORES,
     "decode_scores_bf16": _SCORES,

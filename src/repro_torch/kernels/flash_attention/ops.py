@@ -1,5 +1,7 @@
-"""Wrapper of the flash-attention kernel
-(``repro_torch/csrc/flash_attention.cu``).
+"""Wrappers of the flash-attention kernels
+(``repro_torch/csrc/flash_attention.cu``): ``flash_attention``
+(self-attention over one length S) and ``flash_decode`` (one query row
+per head over a ring-buffer KV cache, the decode form).
 
 Takes the model's (B, S, heads, hd) layout through strides (no
 transposes) and un-repeated kv heads (grouped-query attention reads kv
@@ -8,10 +10,10 @@ head h // (H / KV)); the mask is built in the kernel from ``causal`` and
 stream; a CPU tensor goes to the plain version in ``ref.py``.  The kernel
 stages k and v with 16-byte copies, so on the card their rows must start
 on 16-byte boundaries; a view that breaks this raises (there is no other
-route).  It raises where autograd would need a gradient through it
+route).  Each raises where autograd would need a gradient through it
 (``build.no_backward``): training attends through ``attn_impl``
-"einsum" or "blocked".  ``flash_attention.launches`` counts kernel
-launches.
+"einsum" or "blocked".  ``flash_attention.launches`` and
+``flash_decode.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -86,3 +88,51 @@ def flash_attention(q, k, v, *, causal: bool = False, window: int = 0):
 
 
 flash_attention.launches = 0
+
+
+def _check_decode(q, k, v, pos: int, window: int) -> None:
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be (B, 1, H, hd); got {tuple(q.shape)}")
+    if k.dim() != 4 or k.shape[0] != q.shape[0] or k.shape[1] == 0:
+        raise ValueError(f"k, v must be ({q.shape[0]}, L, KV, "
+                         f"{q.shape[3]}) with L > 0; got {tuple(k.shape)}")
+    # the shared checks, with the cache's length as the kernel's S
+    _check(q.expand(-1, k.shape[1], -1, -1), k, v)
+    if isinstance(pos, bool) or not isinstance(pos, int) or pos < 0:
+        raise ValueError(f"pos must be an int >= 0; got {pos!r}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0; got {window}")
+
+
+def flash_decode(q, k_cache, v_cache, *, pos: int, window: int = 0):
+    """q: (B,1,H,hd), the query of position ``pos``; k_cache, v_cache:
+    (B,L,KV,hd), a ring buffer (slot i holds position pos - ((pos mod L -
+    i) mod L)).  Returns (B,1,H,hd) in q's dtype: softmax(q k^T / sqrt(hd)
+    + bias) v, bias additive -1e9 where a slot holds a negative position
+    or one ``window`` or more behind ``pos`` (``ref.ring_bias``; the
+    kernel computes it from (pos, L, window))."""
+    _check_decode(q, k_cache, v_cache, pos, window)
+    build.no_backward("flash_decode", q, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k_cache, v_cache, pos, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check_aligned(k_cache, v_cache)
+    lib = build.library().lib
+    fn = (lib.flash_decode_f32 if q.dtype == torch.float32
+          else lib.flash_decode_bf16)
+    B, _, H, hd = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    strides = ([q.stride(0), q.stride(2)]
+               + [st for a in (k_cache, v_cache) for st in a.stride()[:3]]
+               + [out.stride(0), out.stride(2)])
+    build.launch("flash_decode", fn, q.get_device(), q.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), B,
+                 L, H, KV, hd, *strides, pos, int(window), 1.0 / hd ** 0.5)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

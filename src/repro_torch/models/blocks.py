@@ -9,13 +9,18 @@ site):
 
 "swa" blocks always window and "moe" blocks window when the config sets
 ``sliding_window`` (Mixtral: sliding-window attention and MoE in one
-layer).  The Mamba-2 block ("mamba2"), bidirectional in denoiser mode:
+layer).  The mixer blocks, "mamba2" (Mamba-2), "mlstm" and "slstm"
+(xLSTM), bidirectional in denoiser mode:
 
-    x = x + mamba2(rmsnorm(x))
+    x = x + mixer(rmsnorm(x))
 
 Every block's ``forward(x, causal=...)`` returns ``(x, aux)``: a "moe"
-block's aux losses, ``None`` for every other block.  "mlstm" and
-"slstm" blocks come with the next model-zoo slice (xLSTM).
+block's aux losses, ``None`` for every other block.  Every block also has
+``init_cache(batch, max_seq, dtype)`` and ``decode(x, cache, pos)``, one
+token (B, 1, d) at position ``pos`` (a Python int), causal, with the
+cache updated in place: a ring buffer of keys and values for the
+attention family (the window's length for windowed blocks, so it wraps
+past the window), the recurrent state for the mixers.
 """
 from __future__ import annotations
 
@@ -27,11 +32,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, RMSNorm
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.moe import MoE
-
-_LATER = {
-    "mlstm": "the next model-zoo slice (xLSTM)",
-    "slstm": "the next model-zoo slice (xLSTM)",
-}
+from repro_torch.models.xlstm import MLSTM, SLSTM
 
 
 class AttnBlock(nn.Module):
@@ -52,9 +53,7 @@ class AttnBlock(nn.Module):
         self.mlp = (MLP(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type, dt,
                         device) if cfg.d_ff > 0 and not moe else None)
 
-    def forward(self, x: torch.Tensor, *,
-                causal: bool) -> tuple[torch.Tensor, dict | None]:
-        x = x + self.attn(self.ln1(x), causal=causal, window=self.window)
+    def _ffn(self, x: torch.Tensor) -> tuple[torch.Tensor, dict | None]:
         if self.moe is not None:
             y, aux = self.moe(self.ln2(x))
             return x + y, aux
@@ -62,20 +61,40 @@ class AttnBlock(nn.Module):
             x = x + self.mlp(self.ln2(x))
         return x, None
 
+    def forward(self, x: torch.Tensor, *,
+                causal: bool) -> tuple[torch.Tensor, dict | None]:
+        x = x + self.attn(self.ln1(x), causal=causal, window=self.window)
+        return self._ffn(x)
 
-class Mamba2Block(nn.Module):
-    """"mamba2" block: ``x + mamba2(rmsnorm(x))``, scanning both ways
-    unless causal."""
+    def init_cache(self, batch: int, max_seq: int, dtype) -> dict:
+        return self.attn.init_cache(batch, max_seq, self.window, dtype)
 
-    def __init__(self, generator, cfg: ModelConfig, device=None):
+    def decode(self, x: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
+        x = x + self.attn.decode_step(self.ln1(x), cache, pos, self.window)
+        return self._ffn(x)[0]
+
+
+class MixerBlock(nn.Module):
+    """"mamba2", "mlstm" or "slstm" block: ``x + mixer(rmsnorm(x))``,
+    running both ways unless causal."""
+
+    MIXERS = {"mamba2": Mamba2, "mlstm": MLSTM, "slstm": SLSTM}
+
+    def __init__(self, kind: str, generator, cfg: ModelConfig, device=None):
         super().__init__()
         self.ln = RMSNorm(cfg.d_model, getattr(torch, cfg.dtype), device,
                           cfg.norm_eps)
-        self.mixer = Mamba2(generator, cfg, device)
+        self.mixer = self.MIXERS[kind](generator, cfg, device)
 
     def forward(self, x: torch.Tensor, *,
                 causal: bool) -> tuple[torch.Tensor, None]:
         return x + self.mixer(self.ln(x), bidirectional=not causal), None
+
+    def init_cache(self, batch: int, max_seq: int, dtype) -> dict:
+        return self.mixer.init_cache(batch, dtype)
+
+    def decode(self, x: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
+        return x + self.mixer.decode(self.ln(x), cache)
 
 
 def build(kind: str, generator, cfg: ModelConfig, device=None) -> nn.Module:
@@ -88,9 +107,6 @@ def build(kind: str, generator, cfg: ModelConfig, device=None) -> nn.Module:
     if kind == "moe":
         return AttnBlock(generator, cfg, cfg.sliding_window, device,
                          moe=True)
-    if kind == "mamba2":
-        return Mamba2Block(generator, cfg, device)
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"{kind!r} blocks are not ported yet; they come with {_LATER[kind]}")
+    if kind in MixerBlock.MIXERS:
+        return MixerBlock(kind, generator, cfg, device)
     raise KeyError(kind)

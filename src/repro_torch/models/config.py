@@ -12,11 +12,12 @@ A model is a sequence of *blocks* (``block_pattern``), each one of:
   "slstm"       — xLSTM scalar-LSTM block
   "shared_attn" — Zamba-style attention block with *shared* weights across
                   all its occurrences
-The port runs "attn", "swa", "moe" (the sort-dispatched mixture of
-experts of ``models/moe.py``), "mamba2" (its SSD scan on the
+The port runs every kind: "moe" is the sort-dispatched mixture of
+experts of ``models/moe.py``, "mamba2" runs its SSD scan on the
 hand-written CUDA kernel ``repro_torch/csrc/ssd_scan.cu`` for CUDA
-tensors) and "shared_attn" blocks; "mlstm" and "slstm" come with the
-xLSTM slice and raise ``NotImplementedError`` when a model is built.
+tensors, and "mlstm"/"slstm" are the xLSTM mixers of ``models/xlstm.py``
+(``mlstm_chunk`` picks the chunked mLSTM form; ``mlstm_unroll`` only
+matters to the JAX package's cost analysis).
 
 ``attn_impl`` keeps the JAX package's values: "einsum" (plain S^2
 attention), "blocked" (online softmax over KV chunks in plain PyTorch)

@@ -16,8 +16,12 @@ load unchanged:
   conv_w  : (W, d_in + 2N), depthwise width-W causal conv over [x, B, C]
   conv_b, A_log, D, dt_bias, norm.scale, out_proj: d_in -> d
 
-The single-step ``decode_step`` and its caches come with the KV/state
-cache slice.
+Decoding (``init_cache``/``decode``, the reference's ``init_cache`` and
+``decode_step``) is the exact single-step recurrence over an (H, N, P)
+state, with the last W - 1 conv inputs kept in the cache; the cache is
+updated in place.  The decode conv is one product over the W-token
+window, the forward's conv a sum of W taps, so the two agree to
+rounding, not bitwise.
 """
 from __future__ import annotations
 
@@ -125,3 +129,41 @@ class Mamba2(nn.Module):
             y = y + torch.flip(self._one_direction(torch.flip(u, dims=(1,))),
                                dims=(1,))
         return y
+
+    # ---------------- decode ----------------
+
+    def init_cache(self, batch: int, dtype) -> dict:
+        """Zero SSM state (batch, H, N, P) and conv history (batch, W - 1,
+        d_in + 2N) in ``dtype``."""
+        cfg = self.cfg
+        dev = self.in_proj.device
+        return {"state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state,
+                                      cfg.ssm_head_dim), dtype=dtype,
+                                     device=dev),
+                "conv": torch.zeros((batch, cfg.conv_width - 1,
+                                     cfg.d_inner + 2 * cfg.ssm_state),
+                                    dtype=dtype, device=dev)}
+
+    def decode(self, u: torch.Tensor, cache: dict) -> torch.Tensor:
+        """One step.  u: (B, 1, d) -> (B, 1, d); ``cache`` is updated in
+        place."""
+        cfg = self.cfg
+        B = u.shape[0]
+        d_in, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+            cfg.ssm_head_dim
+        z, xBC, dt_raw = self._split(u[:, 0])
+        hist = torch.cat([cache["conv"], xBC[:, None]], dim=1)  # (B, W, C)
+        xBC = F.silu(torch.einsum("bwc,wc->bc", hist, self.conv_w)
+                     + self.conv_b)
+        x, Bm, Cm = torch.split(xBC, [d_in, N, N], dim=-1)
+        dtv = F.softplus(dt_raw + self.dt_bias)               # (B, H)
+        A = -torch.exp(self.A_log.float())
+        xh = x.reshape(B, H, P)
+        dec = torch.exp(dtv * A)                              # (B, H)
+        upd = torch.einsum("bh,bn,bhp->bhnp", dtv, Bm, xh)
+        state = cache["state"] * dec[..., None, None] + upd
+        y = torch.einsum("bn,bhnp->bhp", Cm, state)
+        y = y + xh * self.D[:, None]
+        cache["state"].copy_(state)
+        cache["conv"].copy_(hist[:, 1:])
+        return self._post(y.reshape(B, 1, d_in).to(u.dtype), z[:, None])

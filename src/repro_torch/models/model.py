@@ -11,8 +11,10 @@ onto it).  "shared_attn" blocks (Zamba) hold one weight set,
 sites themselves are parameterless placeholders in ``blocks``, so every
 parameter has exactly one name.  A config with a ``frontend`` (the
 audio/vision stub, ``models/frontend.py``) takes precomputed embeddings
-over its first ``frontend_tokens`` positions.  The KV/state caches and
-``decode_step`` come with a later slice.
+over its first ``frontend_tokens`` positions.  ``init_cache`` and
+``decode_step`` run the stack causally one token at a time over a cache
+per entry of ``blocks`` (a "shared_attn" site has its own cache and the
+one shared weight set); the caches are updated in place.
 
 Float32 products stay float32 on the card: the port relies on PyTorch's
 default ``torch.backends.cuda.matmul.allow_tf32 == False``.
@@ -79,9 +81,7 @@ class Model(nn.Module):
         h = frontend.fuse(h, frontend_embeds)
         terms = []
         for kind, blk in zip(cfg.block_pattern, self.blocks):
-            if kind == "shared_attn":
-                blk = self.shared
-            h, aux = blk(h, causal=causal)
+            h, aux = self._block(kind, blk)(h, causal=causal)
             if aux is not None:
                 terms.append(aux)
         h = self.ln_f(h)
@@ -111,6 +111,30 @@ class Model(nn.Module):
                 return logits[:, prefix.shape[1]:].contiguous()
             return self.forward(x_t, t, fe, causal=False)
         return fn
+
+    def init_cache(self, batch: int, max_seq: int, dtype=None) -> list:
+        """One cache per entry of ``blocks``, in its order, for sequences of
+        up to ``max_seq`` tokens (a windowed block's ring holds only its
+        window and wraps).  Attention and Mamba-2 caches are in ``dtype``
+        (the model's by default); xLSTM state is f32."""
+        dt = dtype or getattr(torch, self.cfg.dtype)
+        return [self._block(kind, blk).init_cache(batch, max_seq, dt)
+                for kind, blk in zip(self.cfg.block_pattern, self.blocks)]
+
+    def decode_step(self, token: torch.Tensor, cache: list,
+                    pos: int) -> tuple[torch.Tensor, list]:
+        """token: (B, 1) int at position ``pos`` (a Python int) -> (logits
+        (B, 1, V), cache).  Causal, with no time embedding and no frontend,
+        as the reference's ``decode_step``; ``cache`` is updated in place
+        and returned."""
+        h = F.embedding(token, self.embed)
+        for kind, blk, c in zip(self.cfg.block_pattern, self.blocks, cache):
+            h = self._block(kind, blk).decode(h, c, pos)
+        h = self.ln_f(h)
+        return h @ (self.embed.T if self.head is None else self.head), cache
+
+    def _block(self, kind: str, blk: nn.Module) -> nn.Module:
+        return self.shared if kind == "shared_attn" else blk
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

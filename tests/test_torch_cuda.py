@@ -79,6 +79,33 @@ def test_flash_attention_kernel_matches_plain(gen, B, S, H, KV, hd, causal,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# (B, L, H, KV, hd, pos, window): unwrapped (pos < L) and wrapped rings,
+# windows, grouped-query attention, every head dim
+DECODE_CASES = [(2, 4096, 32, 8, 128, 4095, 0), (2, 4096, 32, 32, 80, 4200, 0),
+                (2, 4096, 12, 12, 64, 100, 0), (2, 16, 4, 2, 16, 40, 16),
+                (3, 16, 8, 2, 128, 15, 0), (2, 48, 4, 4, 32, 70, 9),
+                (1, 33, 2, 1, 80, 5, 0), (2, 300, 8, 4, 64, 1000, 64)]
+
+
+@pytest.mark.parametrize("B,L,H,KV,hd,pos,window", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain(gen, B, L, H, KV, hd, pos, window,
+                                           dtype):
+    q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, L, KV, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, L, KV, hd, generator=gen, device="cuda").to(dtype)
+    before = k2_ops.flash_decode.launches
+    got = k2_ops.flash_decode(q, k, v, pos=pos, window=window)
+    want = k2_ref.decode_attention(q, k, v, pos, window)
+    assert k2_ops.flash_decode.launches == before + 1
+    # bf16: one rounding of the output, measured against the output's own
+    # size (a 4096-slot ring's outputs are about 0.03)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    atol = (tol if dtype == torch.float32
+            else tol * min(1.0, float(want.float().abs().max())))
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=tol)
+
+
 def _misaligned(shape, dtype):
     """A view of ``shape`` that starts one element past a 16-byte
     boundary."""

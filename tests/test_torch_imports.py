@@ -44,6 +44,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops",
               "repro_torch.models.mamba2", "repro_torch.models.moe",
+              "repro_torch.models.xlstm",
               "repro_torch.models.frontend", "repro_torch.configs.shapes",
               "repro_torch.configs.mixtral_8x7b",
               "repro_torch.configs.llama4_maverick_400b",

@@ -321,9 +321,3 @@ def test_mamba2_init_formulas_match_jax(H):
     assert float(mixer.conv_w.abs().max()) <= 2.0 / W ** 0.5 + 1e-7
     assert not mixer.conv_b.any()
 
-
-@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
-def test_kinds_still_to_port_raise(kind):
-    _, tcfg = tiny((kind,), n_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="model-zoo"):
-        TModel(tcfg, device="cpu")

@@ -665,6 +665,9 @@ def _kernel_calls(device):
         "decode_scores": (lambda a: k3_ops.decode_scores(a[0]), [logits]),
         "flash_attention": (lambda a: k2_ops.flash_attention(*a),
                             [q, k, v]),
+        "flash_decode": (lambda a: k2_ops.flash_decode(*a, pos=19,
+                                                       window=0),
+                         [q[:, :1], k, v]),
         "ssd_scan": (lambda a: k4_ops.ssd_scan(*a, chunk=8)[0],
                      [xs, dtv, A, Bm, Cm]),
     }
@@ -688,7 +691,8 @@ def _check_no_backward(device, name):
 
 
 @pytest.mark.parametrize("name", ["dndm_update", "decode_scores",
-                                  "flash_attention", "ssd_scan"])
+                                  "flash_attention", "flash_decode",
+                                  "ssd_scan"])
 def test_kernel_wrappers_refuse_a_gradient_on_the_cpu(name):
     """On a CPU tensor a wrapper takes the differentiable plain version,
     but it raises as on the card when autograd would record it; under
@@ -712,7 +716,8 @@ def test_training_through_the_kernel_route_raises():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["dndm_update", "decode_scores",
-                                  "flash_attention", "ssd_scan"])
+                                  "flash_attention", "flash_decode",
+                                  "ssd_scan"])
 def test_kernel_wrappers_refuse_a_gradient_on_the_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

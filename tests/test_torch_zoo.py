@@ -3,8 +3,7 @@ the CPU.
 
 Every registered config equals the JAX package's field by field (and so
 do its reduced and long-context variants and the input shapes).  Every
-assigned architecture that the port builds (all but ``xlstm-350m``,
-whose blocks come with a later slice) gives the JAX package's logits at
+assigned architecture gives the JAX package's logits at
 ``.reduced(bidirectional=True)`` through the weight bridge, at the
 logits bar of tests/test_torch_model.py (atol 3e-4, rtol 3e-3); the
 audio and vision configs get the same numpy frontend embeddings on both
@@ -29,7 +28,7 @@ from repro_torch.models import frontend as tfrontend
 from repro_torch.models.model import Model as TModel
 
 ATOL, RTOL = 3e-4, 3e-3
-BUILT = [a for a in jconfigs.ASSIGNED_ARCHS if a != "xlstm-350m"]
+BUILT = list(jconfigs.ASSIGNED_ARCHS)
 
 
 @pytest.mark.parametrize("arch", jconfigs.list_archs())
@@ -143,11 +142,6 @@ def test_param_counts_match_jax(arch):
     assert tm.active_param_count() == jm.active_param_count(params)
     if jcfg.n_experts:
         assert tm.active_param_count() < tm.param_count()
-
-
-def test_xlstm_still_raises():
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        TModel(tconfigs.get("xlstm-350m").reduced(), device="cpu")
 
 
 @pytest.mark.parametrize("arch", BUILT)
