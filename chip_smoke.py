@@ -78,10 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   8b. the zamba2 path: zamba2-2.7b at full width (54 layers: 9 x (5
      bidirectional Mamba-2 blocks + the shared attention block), d_model
      2560, 32 heads of 80, d_ff 10240, vocab 32000, ssm_state 64, 80 SSM
-     heads of 64, chunk 128), random weights from seed 0, f32,
-     attn_impl="pallas"; a GenerationEngine (method "dndm", T = 50,
-     absorbing noise, x0_mode "sample") behind a BatchScheduler
-     (max_batch 4, bucket_len 256) drains 4 requests of 256 tokens.
+     heads of 64, chunk 128), the weights phase 15's zamba2 leg trained
+     from seed 0, f32, attn_impl="pallas"; a GenerationEngine (method
+     "dndm", T = 50, absorbing noise, x0_mode "sample") behind a
+     BatchScheduler (max_batch 4, bucket_len 256) drains 4 requests of
+     256 tokens.
      Checks as in 6, with ssd_scan launches = 90 x total NFE,
      flash_attention = 9 x total NFE, dndm_update = total NFE and
      decode_scores = 0; then the full-width logits of one call through
@@ -220,7 +221,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      of 6's untrained model.  Then MT_TRAIN_STEPS steps of full-width
      dndm-mt on translation pairs (source prefix and target of 128
      tokens each), the prefix branch of the train step, with the same
-     readings and checks but the loss's fall.
+     readings and checks but the loss's fall.  Then the zamba2 leg:
+     ZAMBA_TRAIN_STEPS steps (the last TRAIN_PROFILED profiled) of
+     full-width zamba2-2.7b (all 54 layers) on the same recipe, its
+     Mamba-2 blocks scanning through the plain chunked scan
+     (ref.ssd_chunked, the reference's _ssd_scan_ref) as autograd
+     records, at batch ZAMBA_TRAIN_BATCH x 256 (phase 15's batch of 32
+     cut for memory; depth and width whole) on data of TRAIN_DATA_VOCAB
+     token ids (the host's cost of the language), with the same readings
+     and checks but the loss's fall, and the step's peak memory taken
+     apart: parameters and moments, the tensors one forward saves for
+     the backward by block kind (the first Mamba-2 block's by shape),
+     and the rest; phase 8b serves its weights on the kernels;
+ 16. the multi-device code on the one card: a world-size-1 NCCL group
+     (a file rendezvous under build/) and a (1, 1) ("data", "model")
+     DeviceMesh.  Phase 8c's 4-layer mixtral forward with
+     moe_dispatch="shard_map" under launch.mesh.use_mesh (m = 1: the
+     expert-parallel branch, its all_to_all_single and all_gather
+     counted on NCCL) bitwise equal to the global dispatch, logits and
+     each MoE layer's output; then MESH_TRAIN_STEPS train steps of a
+     reduced mixtral ("shard_map", capacity factor 16) with DTensor
+     parameters (launch.sharding.shard_module) against the single-device
+     step on the same draws at the f32 bar of tests/test_torch_training;
+     the group is destroyed before the last line.
 
 The last lines are JSON: the paths, the continuous phases, the kernels, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -240,6 +263,13 @@ alternating pairs.
 
 runs phase 14 alone on the full-width dndm-text8 and dndm-mt models with
 TELEMETRY_MEASURE_PAIRS (10) off/on pairs per path.
+
+    python3 chip_smoke.py --measure-xlstm [--parent DIR]
+
+times xlstm-350m's network call at phase 8e's shape (seed 0 weights),
+XLSTM_AB_CALLS calls after a warm one in a fresh process per tree: this
+checkout's and, with ``--parent DIR``, that commit's, in the order parent,
+change, change, parent.
 """
 from __future__ import annotations
 
@@ -268,6 +298,7 @@ from repro_torch.core import schedules as sched_lib  # noqa: E402
 from repro_torch.core.decode import (gumbel_noise,  # noqa: E402
                                      row_gumbel_noise)
 from repro_torch.core.samplers import loop, registry  # noqa: E402
+from repro_torch.device import full, is_sharded  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_scores import ops as k3_ops  # noqa: E402
 from repro_torch.kernels.decode_scores import ref as k3_ref  # noqa: E402
@@ -279,6 +310,8 @@ from repro_torch.kernels.ssd_scan import ops as k4_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as k4_ref  # noqa: E402
 from repro_torch.data import (DataConfig, DataPipeline,  # noqa: E402
                               MarkovLanguage)
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import frontend as frontend_lib  # noqa: E402
 from repro_torch.models import mamba2 as mamba2_lib  # noqa: E402
@@ -381,6 +414,8 @@ XLSTM_CHUNK = 64
 # the profiled xlstm blocks' device time must match the profiled call's
 # within this share
 PROFILE_SUM_TOL = 0.15
+# --measure-xlstm: timed network calls per process
+XLSTM_AB_CALLS = 10
 
 # decode on the card (phase 8f): DECODE_POS positions of DECODE_B rows
 # through the caches, one token at a time, against forward(causal=True):
@@ -436,6 +471,27 @@ TRAIN_LR, TRAIN_LR_WARMUP = 3e-4, 20
 TRAIN_PROFILED = 2
 MT_TRAIN_STEPS, MT_TRAIN_SEQ = 8, 128
 TRAIN_CKPT = ROOT / "build" / "train" / "dndm_text8"
+# the zamba2 leg of phase 15: full-width zamba2-2.7b on the same recipe,
+# through the plain chunked scan.  Phase 15's batch of 32 would need
+# several times the card's memory (2.07 B f32 parameters, gradients and
+# moments take 33 GB; each Mamba-2 block direction keeps about four
+# (B, 2, 128, 128, 80) f32 tensors for the backward), so the batch is cut
+# to 4; the sequence (256), depth and width stay whole
+# (a median of 3 steps between the warm-up and the profiled ones)
+ZAMBA_TRAIN_STEPS, ZAMBA_TRAIN_BATCH = 8, 4
+# the training data's vocabulary is the model's but [MASK], at most this
+# many ids: the synthetic language keeps a dense (V, V) table and its
+# cumulative sum per batch, 8 GB and a minute of host time at zamba2's
+# 32,000 ids, while a step's cost does not depend on which ids it sees
+TRAIN_DATA_VOCAB = 4096
+
+# the multi-device phase (16): a world-size-1 NCCL group met through a
+# file, a (1, 1) mesh; train steps of a reduced mixtral (batch x tokens)
+MESH_RENDEZVOUS = ROOT / "build" / "mesh" / "rendezvous"
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4, 64
+# the f32 bar of tests/test_torch_training.py (params: all but
+# MESH_ILL_CONDITIONED of the elements, each within 2 x the sum of lr)
+MESH_RTOL, MESH_ATOL, MESH_ILL_CONDITIONED = 1e-5, 1e-6, 1e-4
 
 
 def gpu_name_and_power() -> str:
@@ -847,11 +903,13 @@ def check_denoiser(model, n_tok: int, prefix_len: int = 0,
                    batch: int = 2) -> float:
     """Full-width logits (through the samplers' denoiser, with a source
     prefix if ``prefix_len``) through the kernels vs the plain route
-    (einsum attention, and ref.ssd_chunked for Mamba-2 blocks), same
-    weights, at the repo's logits bar (atol 3e-4, rtol 3e-3,
-    tests/test_models.py)."""
+    (einsum attention, and ref.ssd_chunked for Mamba-2 blocks), the same
+    weights copied into a second model, at the repo's logits bar (atol
+    3e-4, rtol 3e-3, tests/test_models.py)."""
     plain = Model(model.cfg.replace(attn_impl="einsum"), device="cuda",
                   seed=0)
+    # the model's own weights (phase 8b's are trained, not seed 0's)
+    plain.load_state_dict(model.state_dict())
     g = torch.Generator(device="cuda").manual_seed(1)
     tok = torch.randint(0, model.cfg.vocab_size, (batch, n_tok), generator=g,
                         device="cuda", dtype=torch.int32)
@@ -1519,11 +1577,12 @@ def train_run(arch: str, task: str, steps: int, seq: int,
     port's ``make_train_step`` (f32, einsum attention, TF32 off) on
     ``task`` batches of the port's DataPipeline; each step timed to its
     loss on the host, the last TRAIN_PROFILED steps under torch.profiler
-    (device time, its GEMM part, launches and top kernels per step).
-    Checks: no kernel launched (the train step runs none, as in the JAX
-    package), every loss and parameter finite.  Returns the model and the
-    phase's record."""
+    recording the card's activity (device time, its GEMM part, launches
+    and top kernels per step).  Checks: no kernel launched (the train
+    step runs none, as in the JAX package), every loss and parameter
+    finite.  Returns the model and the phase's record."""
     from torch.profiler import ProfilerActivity, profile
+    t_run = time.perf_counter()
     cfg = configs_lib.get(arch)
     if cfg.attn_impl != "einsum":
         raise AssertionError(f"{arch} trains through attn_impl "
@@ -1534,13 +1593,14 @@ def train_run(arch: str, task: str, steps: int, seq: int,
     step = make_train_step(model, sched_lib.linear(TRAIN_T),
                            noise_lib.absorbing(cfg.vocab_size), opt)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pipe = iter(DataPipeline(DataConfig(task=task, vocab=cfg.vocab_size - 1,
-                                        seq_len=seq, batch=batch)))
+    pipe = iter(DataPipeline(DataConfig(
+        task=task, vocab=min(cfg.vocab_size - 1, TRAIN_DATA_VOCAB),
+        seq_len=seq, batch=batch)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, ms = [], []
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     for i in range(steps):
         if i == steps - TRAIN_PROFILED:
             prof.start()
@@ -1596,8 +1656,73 @@ def train_run(arch: str, task: str, steps: int, seq: int,
                    / TRAIN_PROFILED,
                    "launches_per_step": e.count / TRAIN_PROFILED}
                    for e in top]},
-           "losses": losses, "card": card}
+           "launches": launches, "losses": losses, "card": card,
+           "seconds": time.perf_counter() - t_run}
     return model, rec
+
+
+def saved_for_backward(model, batch: int, seq: int) -> dict:
+    """What one forward of ``model`` under autograd (its training route:
+    einsum attention, the plain chunked scan) keeps for the backward at
+    ``batch`` x ``seq`` random tokens: every storage that autograd saves,
+    parameters left out, counted once, under the block that saved it
+    first; GB by block kind, and the first Mamba-2 block's tensors
+    (both directions) grouped by shape and dtype."""
+    cfg = model.cfg
+    params = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    site = ["embed"]
+    saved: dict[int, tuple] = {}          # storage -> (site, bytes, shape)
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in params and st.data_ptr() not in saved:
+            saved[st.data_ptr()] = (site[0], st.nbytes(),
+                                    (tuple(t.shape), str(t.dtype)))
+        # a detached view of the same storage: an op's output kept as
+        # itself would hold its own grad_fn, a cycle that outlives the
+        # forward with every saved tensor in it
+        return t.detach()
+
+    calls = {"mamba2": 0, "shared_attn": 0}
+
+    def enter(kind):
+        def hook(module, args):
+            site[0] = f"{kind} {calls[kind]}"
+            calls[kind] += 1
+        return hook
+
+    mods = [(model.shared, "shared_attn")] + [
+        (b, k) for k, b in zip(cfg.block_pattern, model.blocks)
+        if k == "mamba2"]
+    hooks = [m.register_forward_pre_hook(enter(k)) for m, k in mods]
+    hooks.append(model.ln_f.register_forward_pre_hook(
+        lambda module, args: site.__setitem__(0, "head")))
+    g = torch.Generator(device=model.device).manual_seed(2)
+    tok = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device=model.device)
+    t = torch.rand(batch, generator=g, device=model.device)
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            logits = model(tok, t, causal=False)   # as the train step
+    finally:
+        for h in hooks:
+            h.remove()
+    del logits
+    by_kind: dict[str, float] = {}
+    first: dict[tuple, list] = {}
+    for where, nbytes, key in saved.values():
+        kind = where.split()[0]
+        by_kind[kind] = by_kind.get(kind, 0.0) + nbytes / 1e9
+        if where == "mamba2 0":
+            first.setdefault(key, []).append(nbytes)
+    return {"tokens": [batch, seq], "gb_by_kind": by_kind,
+            "blocks": calls, "gb": sum(by_kind.values()),
+            "gb_per_mamba2_direction":
+            by_kind.get("mamba2", 0.0) / max(1, 2 * calls["mamba2"]),
+            "first_mamba2_block": sorted(
+                ({"shape": list(shape), "dtype": dt, "count": len(b),
+                  "mb": sum(b) / 1e6} for (shape, dt), b in first.items()),
+                key=lambda r: -r["mb"])}
 
 
 def mean_log_likelihood(done, vocab: int) -> float:
@@ -1608,12 +1733,14 @@ def mean_log_likelihood(done, vocab: int) -> float:
     return MarkovLanguage(vocab, seed=DataConfig().seed).log_likelihood(toks)
 
 
-def training_phase(untrained_ll: float, card: str) -> dict:
+def training_phase(untrained_ll: float, card: str) -> tuple[dict, Model]:
     """Phase 15: train full-width dndm-text8; the loss must fall.  Save
     it with the port's checkpoint writer, load it through the weight
     bridge into a fresh attn_impl="pallas" model (bitwise), serve 16 x
     256 tokens with dndm on the card's kernels with phase 6's checks;
-    then a few steps of full-width dndm-mt with source prefixes."""
+    then a few steps of full-width dndm-mt with source prefixes; then
+    the zamba2 leg.  Returns the records and the trained zamba2 model,
+    which phase 8b serves."""
     model, text8 = train_run("dndm-text8", "unconditional", TRAIN_STEPS,
                              TRAIN_SEQ, card=card)
     if not text8["loss_last5_mean"] < text8["loss_first5_mean"]:
@@ -1644,7 +1771,27 @@ def training_phase(untrained_ll: float, card: str) -> dict:
     _, mt = train_run("dndm-mt", "translation", MT_TRAIN_STEPS,
                       MT_TRAIN_SEQ, card=card)
     torch.cuda.empty_cache()
-    return {"text8": text8, "mt": mt}
+    z_model, zamba = train_run("zamba2-2.7b", "unconditional",
+                               ZAMBA_TRAIN_STEPS, TRAIN_SEQ,
+                               batch=ZAMBA_TRAIN_BATCH, card=card)
+    zamba["reduced"] = [f"batch {TRAIN_BATCH} -> {ZAMBA_TRAIN_BATCH} "
+                        "(memory); sequence, depth and width whole",
+                        f"data ids {z_model.cfg.vocab_size - 1} -> "
+                        f"{TRAIN_DATA_VOCAB} (host time)"]
+    # the step's peak: the parameters and AdamW's two moments (f32 each),
+    # the forward's saved tensors, and what the loss and the backward
+    # hold besides (the gradients come as the backward frees saved ones)
+    saved = saved_for_backward(z_model, ZAMBA_TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    state_gb = 3 * 4 * zamba["params"] / 1e9
+    zamba["memory_gb"] = {
+        "peak": zamba["max_memory_allocated_gb"],
+        "params_and_moments": state_gb, "saved_for_backward": saved,
+        "rest": zamba["max_memory_allocated_gb"] - state_gb - saved["gb"],
+        "card_margin": torch.cuda.get_device_properties(0).total_memory
+        / 1e9 - zamba["max_memory_allocated_gb"]}
+    torch.cuda.empty_cache()
+    return {"text8": text8, "mt": mt, "zamba2": zamba}, z_model
 
 
 def measure_telemetry() -> int:
@@ -2126,14 +2273,15 @@ def measure_mixtral_flash(g) -> dict:
             "max_abs_err_vs_library": err}
 
 
-def mixtral_phase(g, card: str) -> tuple[dict, dict]:
+def mixtral_phase(g, card: str) -> tuple[dict, dict, Model]:
     """Phase 8c: serve MIXTRAL_REQUESTS x MIXTRAL_LEN tokens of the
     mixtral path with dndm through the port's entry points, with phase
     6's checks and the launch counts (flash_attention once per "moe"
     block per network call); the block-by-block denoiser check; the MoE
     layer's synchronising calls and time split; one profiled sampler run;
     flash_attention at the path's shape; phase 8f's decode check; peak
-    memory.  Returns the path's record and its launch counts."""
+    memory.  Returns the path's record, its launch counts and the model
+    (phase 16 runs it once more)."""
     torch.cuda.reset_peak_memory_stats()
     model, info = mixtral_model()
     print(f"mixtral path ({card}): {info['params'] / 1e9:.3f} B parameters "
@@ -2171,7 +2319,7 @@ def mixtral_phase(g, card: str) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
     if peak >= CARD_MEMORY_BYTES:
         raise AssertionError(f"mixtral path peak memory {peak / 1e9:.1f} GB")
-    del model, sched, moe, den["moe_input"]
+    del sched, moe, den["moe_input"]
     torch.cuda.empty_cache()
     return {
         "mixtral_path": f"mixtral-8x7b full width, {MIXTRAL_LAYERS} of 32 "
@@ -2187,7 +2335,182 @@ def mixtral_phase(g, card: str) -> tuple[dict, dict]:
         "denoiser": {k: v for k, v in den.items() if k != "moe_input"},
         "moe_sync": syncs, "moe_split": split, "profile": prof,
         "flash_attention": flash, "decode": decode,
-        "max_memory_allocated_gb": peak / 1e9}, counts
+        "max_memory_allocated_gb": peak / 1e9}, counts, model
+
+
+# The multi-device code on the one card (phase 16).
+
+@contextlib.contextmanager
+def counted_collectives(names):
+    """Count the calls of the ``torch.distributed`` functions ``names``
+    inside the block ({name: calls})."""
+    import torch.distributed as dist
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
+    for n, fn in saved.items():
+        setattr(dist, n, counted(n, fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def mesh_mixtral_check(model, mesh) -> dict:
+    """Phase 8c's 4-layer mixtral, one forward of its serving shape with
+    the global dispatch and one with "shard_map" under the (1, 1) mesh:
+    logits and every MoE layer's output bitwise equal; each MoE layer
+    sends its buffer out and back by all_to_all_single and gathers its
+    tokens by all_gather (counted in the last forward)."""
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(16)
+    tok = torch.randint(0, cfg.vocab_size - 1, (MIXTRAL_BATCH, MIXTRAL_LEN),
+                        generator=g, device="cuda")
+    t = torch.rand(MIXTRAL_BATCH, generator=g, device="cuda")
+    moes = [blk.moe for blk in model.blocks]
+    ys: list = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: ys.append(out[0]))
+             for m in moes]
+    ms = {}
+    try:
+        with torch.inference_mode():
+            # the first collective of the group pays NCCL's set-up: the
+            # sharded forward runs twice, the second checked and timed
+            for name in ("global", "shard_map_first", "shard_map"):
+                ys.clear()
+                with contextlib.ExitStack() as stack:
+                    if name != "global":
+                        stack.enter_context(swapped_cfg(moes, cfg.replace(
+                            moe_dispatch="shard_map")))
+                        stack.enter_context(mesh_lib.use_mesh(mesh))
+                        calls = stack.enter_context(counted_collectives(
+                            ("all_to_all_single", "all_gather")))
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits = model(tok, t, causal=False)
+                    torch.cuda.synchronize()
+                    ms[name] = 1e3 * (time.perf_counter() - t0)
+                if name == "global":
+                    want, want_y = logits, list(ys)
+    finally:
+        for h in hooks:
+            h.remove()
+    n = len(moes)
+    if calls != {"all_to_all_single": 2 * n, "all_gather": n}:
+        raise AssertionError(f"shard_map forward made collectives {calls}, "
+                             f"expected 2 x {n} all-to-alls and {n} gathers")
+    same_y = [torch.equal(a, b) for a, b in zip(ys, want_y, strict=True)]
+    if not all(same_y) or not torch.equal(logits, want):
+        raise AssertionError(f"shard_map is not bitwise the global dispatch: "
+                             f"MoE outputs equal {same_y}, logits max diff "
+                             f"{(logits - want).abs().max().item():.3g}")
+    return {"tokens": list(tok.shape), "moe_layers": n, "collectives": calls,
+            "logits_bitwise": True, "moe_outputs_bitwise": same_y,
+            "forward_ms": ms}
+
+
+def mesh_train_check(mesh) -> dict:
+    """MESH_TRAIN_STEPS train steps of a reduced mixtral ("shard_map",
+    capacity factor 16) with DTensor parameters on the (1, 1) mesh and
+    the same steps on one device, the same draws from the same
+    generator: metrics and parameters at the f32 bar of
+    tests/test_torch_training.py."""
+    policy = sharding.ShardingPolicy()
+    cfg = configs_lib.get("mixtral-8x7b").reduced(capacity_factor=16.0,
+                                                  moe_dispatch="shard_map")
+    pipe = iter(DataPipeline(DataConfig(vocab=cfg.vocab_size - 1,
+                                        seq_len=MESH_TRAIN_SEQ,
+                                        batch=MESH_TRAIN_BATCH)))
+    batches = [torch.as_tensor(next(pipe)["x0"], device="cuda")
+               for _ in range(MESH_TRAIN_STEPS)]
+
+    def steps(sharded: bool):
+        model = Model(cfg, device="cuda", seed=0)
+        if sharded:
+            sharding.shard_module(model, mesh, policy)
+        opt = AdamW(warmup_cosine(TRAIN_LR, TRAIN_LR_WARMUP, 100))
+        state = init_state(model, opt)
+        step = make_train_step(model, sched_lib.linear(TRAIN_T),
+                               noise_lib.absorbing(cfg.vocab_size), opt)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        out = []
+        for x0 in batches:
+            if sharded:
+                with mesh_lib.use_mesh(mesh):
+                    state, met = step(state, sharding.shard_batch(
+                        {"x0": x0}, mesh, policy), gen)
+            else:
+                state, met = step(state, {"x0": x0}, gen)
+            out.append(({k: float(v) for k, v in met.items()},
+                        {k: full(p).detach().clone()
+                         for k, p in model.named_parameters()},
+                        is_sharded(next(model.parameters()))))
+        return out
+
+    got, want = steps(True), steps(False)
+    lr_sum, worst = 0.0, {}
+    for i, ((gm, gp, dt), (wm, wp, _)) in enumerate(zip(got, want)):
+        if not dt:
+            raise AssertionError("the sharded model's parameters are not "
+                                 "DTensors")
+        for k in ("lr", "grad_norm", "loss", "ce", "load_balance"):
+            if abs(gm[k] - wm[k]) > MESH_ATOL + MESH_RTOL * abs(wm[k]):
+                raise AssertionError(f"step {i} {k}: {gm[k]} against "
+                                     f"{wm[k]} on one device")
+        lr_sum += wm["lr"]
+        off = total = 0
+        for k, w in wp.items():
+            d = (gp[k] - w).abs()
+            bar = MESH_ATOL + MESH_RTOL * w.abs()
+            if (d > bar + 2 * lr_sum).any():
+                raise AssertionError(f"step {i} {k}: off by "
+                                     f"{d.max().item():.3g}")
+            off += int((d > bar).sum())
+            total += d.numel()
+            worst[k] = max(worst.get(k, 0.0), d.max().item())
+        if off > MESH_ILL_CONDITIONED * total:
+            raise AssertionError(f"step {i}: {off} of {total} parameters off "
+                                 "the f32 bar")
+    return {"config": "mixtral-8x7b reduced, capacity_factor 16, "
+                      "moe_dispatch shard_map",
+            "steps": MESH_TRAIN_STEPS, "batch": MESH_TRAIN_BATCH,
+            "seq": MESH_TRAIN_SEQ,
+            "loss": [m["loss"] for m, _, _ in got],
+            "loss_one_device": [m["loss"] for m, _, _ in want],
+            "params_max_abs_diff": max(worst.values()),
+            "params_bitwise": all(torch.equal(gp[k], wp[k])
+                                  for (_, gp, _), (_, wp, _) in
+                                  zip(got, want) for k in wp)}
+
+
+def mesh_phase(mx_model, card: str) -> dict:
+    """Phase 16: a world-size-1 NCCL group met through a file under
+    build/, a (1, 1) ("data", "model") mesh, the sharded MoE dispatch on
+    phase 8c's model and a DTensor train step; the group is destroyed at
+    the end, whatever happened."""
+    import torch.distributed as dist
+    MESH_RENDEZVOUS.parent.mkdir(parents=True, exist_ok=True)
+    MESH_RENDEZVOUS.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{MESH_RENDEZVOUS}",
+                            rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+        init_s = time.perf_counter() - t0
+        moe = mesh_mixtral_check(mx_model, mesh)
+        train = mesh_train_check(mesh)
+    finally:
+        dist.destroy_process_group()
+    return {"card": card, "backend": backend,
+            "mesh": {"shape": [1, 1], "axes": ["data", "model"]},
+            "group_init_s": init_s, "mixtral": moe, "train": train}
 
 
 def zoo_sweep() -> dict:
@@ -2934,6 +3257,61 @@ def noise_phase_check(g, libs: dict) -> dict:
     return out
 
 
+# one process of --measure-xlstm: argv = the tree's src, batch, tokens,
+# calls; prints the calls' wall times (ms), each to its synchronize
+XLSTM_CALL_TIMER = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+import repro_torch.configs as configs_lib
+from repro_torch.models.model import Model
+B, S, n = (int(a) for a in sys.argv[2:5])
+cfg = configs_lib.get("xlstm-350m")
+fn = Model(cfg, device="cuda", seed=0).denoise_fn()
+g = torch.Generator(device="cuda").manual_seed(1)
+tok = torch.randint(0, cfg.vocab_size - 1, (B, S), generator=g,
+                    device="cuda", dtype=torch.int32)
+t = torch.rand(B, generator=g, device="cuda")
+ms = []
+with torch.inference_mode():
+    for _ in range(1 + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(tok, t, None)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+print(json.dumps({"ms": ms[1:]}))
+"""
+
+
+def measure_xlstm(parent: Path | None) -> int:
+    """--measure-xlstm: xlstm-350m's network call timed in a fresh process
+    per tree (this checkout, and with ``parent`` that tree, in the order
+    parent, change, change, parent); the medians per process and per
+    tree."""
+    print(gpu_name_and_power(), flush=True)
+    order = ([("parent", parent), ("change", ROOT), ("change", ROOT),
+              ("parent", parent)] if parent is not None
+             else [("change", ROOT)])
+    runs: dict[str, list] = {}
+    for name, tree in order:
+        r = subprocess.run(
+            [sys.executable, "-c", XLSTM_CALL_TIMER, str(tree / "src"),
+             str(XLSTM_BATCH), str(XLSTM_LEN), str(XLSTM_AB_CALLS)],
+            capture_output=True, text=True, cwd=tree)
+        if r.returncode:
+            raise RuntimeError(f"{name} ({tree}): {r.stderr[-2000:]}")
+        ms = json.loads(r.stdout.strip().splitlines()[-1])["ms"]
+        runs.setdefault(name, []).append(ms)
+        print(f"xlstm network call, {name}: median "
+              f"{statistics.median(ms):.2f} ms of {len(ms)}", flush=True)
+    print(json.dumps({"xlstm_network_call_ms": {
+        name: {"median": statistics.median(sum(r, [])),
+               "process_medians": [statistics.median(m) for m in r],
+               "ms": r} for name, r in runs.items()}}), flush=True)
+    return 0
+
+
 def measure_decode(parent: Path | None) -> int:
     """--measure-decode: the host-time pieces, the noise-phase check, the
     regime sweep and, with --parent DIR, the parent's decode wrappers
@@ -2961,10 +3339,12 @@ def main() -> int:
         return 1
     if "--measure-telemetry" in sys.argv:
         return measure_telemetry()
+    parent = (Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
+              if "--parent" in sys.argv else None)
     if "--measure-decode" in sys.argv:
-        return measure_decode(
-            Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
-            if "--parent" in sys.argv else None)
+        return measure_decode(parent)
+    if "--measure-xlstm" in sys.argv:
+        return measure_xlstm(parent)
     # 1. the card
     print(gpu_name_and_power(), flush=True)
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3098,12 +3478,13 @@ def main() -> int:
     lap("continuous_sweep")
 
     # 15. training: full-width dndm-text8, its checkpoint served on the
-    # kernels; a few prefixed dndm-mt steps
-    train = training_phase(untrained_ll, card)
+    # kernels; a few prefixed dndm-mt steps; full-width zamba2 through the
+    # plain chunked scan
+    train, z_model = training_phase(untrained_ll, card)
     for name, r in train.items():
         print(f"training {name} ({card}): {r['ms_per_step']:.2f} ms per "
               f"step (median of "
-              f"{r['steps'] - TRAIN_WARMUP - TRAIN_PROFILED}), "
+              f"{r['steps'] - TRAIN_WARMUP - r['profile']['steps']}), "
               f"{r['tokens_per_s']:.0f} tokens/s, {r['tflop_per_s']:.2f} "
               f"TFLOP/s ({100 * r['f32_peak_share']:.1f}% of the f32 "
               f"peak), peak memory {r['max_memory_allocated_gb']:.2f} GB, "
@@ -3111,8 +3492,19 @@ def main() -> int:
               f"{r['loss_last5_mean']:.4f}; profiled: device "
               f"{r['profile']['device_ms_per_step']:.2f} ms per step, GEMMs "
               f"{r['profile']['gemm_ms_per_step']:.2f}, busy "
-              f"{100 * r['profile']['device_busy_share']:.1f}%",
+              f"{100 * r['profile']['device_busy_share']:.1f}%"
+              + (f"; reduced: {r['reduced']}" if "reduced" in r else ""),
               flush=True)
+    zm = train["zamba2"]["memory_gb"]
+    sfb = zm["saved_for_backward"]
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in sfb["gb_by_kind"].items())
+    print(f"training zamba2 memory ({card}): peak {zm['peak']:.2f} GB = "
+          f"parameters and moments "
+          f"{zm['params_and_moments']:.2f} + saved for the backward "
+          f"{sfb['gb']:.2f} ({kinds}; "
+          f"{sfb['gb_per_mamba2_direction']:.3f} per Mamba-2 direction) + "
+          f"the rest {zm['rest']:.2f}; "
+          f"{zm['card_margin']:.2f} GB of the card left", flush=True)
     sv = train["text8"]["served"]
     print(f"training: trained text8 served {sv['launches']}; mean "
           f"log-likelihood trained {sv['log_likelihood_trained']:.3f}, "
@@ -3120,9 +3512,17 @@ def main() -> int:
           flush=True)
     lap("training")
 
-    # 8b. the zamba2 path
+    # 8b. the zamba2 path, on the weights phase 15's zamba2 leg trained,
+    # served on the kernels
+    served = Model(z_model.cfg.replace(attn_impl="pallas"), device="cuda",
+                   seed=1)
+    served.load_state_dict(z_model.state_dict())
+    del z_model
+    torch.cuda.empty_cache()
     z_model, z_sched, z_done, z_drain_s, z_counts = main_path(
-        "zamba2-2.7b", ZAMBA_REQUESTS, ZAMBA_LEN, ZAMBA_BATCH, ZAMBA_T)
+        "zamba2-2.7b", ZAMBA_REQUESTS, ZAMBA_LEN, ZAMBA_BATCH, ZAMBA_T,
+        model=served)
+    del served
     z_stats = check_main_path(z_model, z_sched, z_done, z_counts,
                               ZAMBA_REQUESTS, ZAMBA_LEN)
     lap("zamba2_path")
@@ -3142,8 +3542,22 @@ def main() -> int:
 
     # 8c. the mixtral path (the zamba2 model is freed: this one takes
     # 24.4 GB)
-    mx_line, mx_counts = mixtral_phase(g, card)
+    mx_line, mx_counts, mx_model = mixtral_phase(g, card)
     lap("mixtral_path")
+    # 16. the multi-device code on the one card, on the mixtral model
+    mesh = mesh_phase(mx_model, card)
+    del mx_model
+    torch.cuda.empty_cache()
+    lap("mesh")
+    mesh["seconds"] = phase_s["mesh"]
+    print(f"mesh ({card}): {mesh['backend']} world size 1, (1, 1) mesh; "
+          f"mixtral shard_map bitwise the global dispatch (collectives "
+          f"{mesh['mixtral']['collectives']}, forward ms "
+          f"{mesh['mixtral']['forward_ms']}); DTensor train steps at the "
+          f"f32 bar (params max diff "
+          f"{mesh['train']['params_max_abs_diff']:.3g}, bitwise "
+          f"{mesh['train']['params_bitwise']}) in "
+          f"{mesh['seconds']:.1f} s", flush=True)
     # 8d. every config, reduced, through one dndm batch
     zoo = zoo_sweep()
     print(f"zoo sweep: {len(zoo)} configs; NFE "
@@ -3171,6 +3585,9 @@ def main() -> int:
              "ranked": cont_ranked["continuous"]["launches"]["dndm_update"],
              "sweep": csweep["launches"]["dndm_update"]},
          "launches_training": sv["launches"]["dndm_update"],
+         "launches_training_steps": {
+             k: r["launches"]["dndm_update"] for k, r in train.items()},
+         "launches_zamba2_trained": z_counts["dndm_update"],
          "launches_mixtral": mx_counts["dndm_update"],
          "launches_zoo": zoo_launches("dndm_update"),
          "launches_xlstm": xl_counts["dndm_update"],
@@ -3185,6 +3602,9 @@ def main() -> int:
              "ranked":
              cont_ranked["continuous"]["launches"]["flash_attention"]},
          "launches_training": sv["launches"]["flash_attention"],
+         "launches_training_steps": {
+             k: r["launches"]["flash_attention"] for k, r in train.items()},
+         "launches_zamba2_trained": z_counts["flash_attention"],
          "launches_mixtral": mx_counts["flash_attention"],
          "launches_zoo": zoo_launches("flash_attention"),
          **t["flash_attention"], "at_mixtral": mx_line["flash_attention"]},
@@ -3212,6 +3632,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:26",
          "launches": z_counts["ssd_scan"],
+         "launches_training_steps": {
+             k: r["launches"]["ssd_scan"] for k, r in train.items()},
          "launches_zoo": zoo_launches("ssd_scan"),
          "max_abs_err": max(k4_check["max_err_f32"],
                             k4_check["full"]["vs_chunked"]),
@@ -3256,8 +3678,8 @@ def main() -> int:
                                      / mt_line["ms_per_network_call"][m])
     mt_line["profile"] = mt_prof
     z_line = {
-        "zamba2_path": "zamba2-2.7b full width, dndm T=50, absorbing, "
-                       "sample",
+        "zamba2_path": "zamba2-2.7b full width, the weights of phase 15's "
+                       "zamba2 leg, dndm T=50, absorbing, sample",
         "requests": len(z_done), "tokens_per_request": ZAMBA_LEN,
         "batches": z_stats["batches"], "nfe_timed": z_stats["timed_nfe"],
         "nfe_thm_d1": ZAMBA_T * (1 - (1 - 1 / ZAMBA_T) ** ZAMBA_LEN),
@@ -3298,6 +3720,7 @@ def main() -> int:
                  "(dndm-text8 full width, T=1000, shared_tau=False)",
         "card": card, **telemetry}}))
     print(json.dumps({"training": train}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"device_kernels_per_call": dev_kernels}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))

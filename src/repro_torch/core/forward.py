@@ -78,6 +78,24 @@ def markov_trajectory(generator: torch.Generator, x0: torch.Tensor,
     return torch.stack(traj)
 
 
+def training_draws(generator: torch.Generator, shape: tuple[int, ...],
+                   schedule: Schedule, noise: NoiseDist, *,
+                   continuous: bool = False, device=None) -> dict:
+    """The draws {"t", "u", "w"} of :func:`corrupt_for_training` (or, with
+    ``continuous``, :func:`corrupt_continuous`) for tokens of ``shape``,
+    in their order: t per example, then a uniform per token, then the
+    noise ids.  Both corruptions draw through it."""
+    B = shape[0]
+    if continuous:
+        t = torch.rand((B,), generator=generator, device=device)
+    else:
+        t = torch.randint(1, schedule.T + 1, (B,), generator=generator,
+                          device=device)
+    u = torch.rand(shape, generator=generator, device=device)
+    w = noise.sample(generator, tuple(shape), device=device)
+    return {"t": t, "u": u, "w": w}
+
+
 def corrupt_for_training(generator: torch.Generator | None,
                          x0: torch.Tensor, schedule: Schedule,
                          noise: NoiseDist, t: torch.Tensor | None = None,
@@ -89,11 +107,11 @@ def corrupt_for_training(generator: torch.Generator | None,
     ``draws`` {"t", "u", "w"} replays every draw.
     """
     B = x0.shape[0]
-    if t is None and draws is not None:
-        t = draws["t"]
+    if t is None and draws is None:
+        draws = training_draws(generator, tuple(x0.shape), schedule, noise,
+                               device=x0.device)
     if t is None:
-        t = torch.randint(1, schedule.T + 1, (B,), generator=generator,
-                          device=x0.device)
+        t = draws["t"]
     t = torch.as_tensor(t, device=x0.device).long()
     alphas = torch.as_tensor(schedule.alphas, dtype=torch.float32,
                              device=x0.device)
@@ -111,10 +129,9 @@ def corrupt_continuous(generator: torch.Generator | None, x0: torch.Tensor,
     alpha_t); ``draws`` {"t", "u", "w"} replays every draw."""
     B = x0.shape[0]
     if draws is None:
-        t = torch.rand((B,), generator=generator, device=x0.device)
-    else:
-        t = torch.as_tensor(draws["t"], dtype=torch.float32,
-                            device=x0.device)
+        draws = training_draws(generator, tuple(x0.shape), schedule, noise,
+                               continuous=True, device=x0.device)
+    t = torch.as_tensor(draws["t"], dtype=torch.float32, device=x0.device)
     alpha_t = schedule.alpha_fn(t)
     bshape = (B,) + (1,) * (x0.dim() - 1)
     x_t = sample_xt(generator, x0, alpha_t.reshape(bshape), noise, draws)

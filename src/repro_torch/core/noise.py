@@ -36,6 +36,16 @@ class NoiseDist:
         return torch.full(shape, self.mask_id, dtype=torch.int32,
                           device=device)
 
+    def probs(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """The row vector ``q_noise`` over the vocabulary: uniform for
+        multinomial, one-hot at ``mask_id`` for absorbing."""
+        if self.kind == "multinomial":
+            return torch.full((self.vocab_size,), 1.0 / self.vocab_size,
+                              dtype=dtype, device=device)
+        p = torch.zeros((self.vocab_size,), dtype=dtype, device=device)
+        p[self.mask_id] = 1
+        return p
+
     @property
     def pad_id(self) -> int:
         """Token id used to left-pad short conditioning prefixes in a

@@ -15,10 +15,13 @@
     quantiles of D_tau, so the NFE is fixed; as nfe_budget -> |T| this
     converges to Algorithm 1.
 
-Both decode through :func:`repro_torch.core.decode.fused_update` — the
-``dndm_update`` CUDA kernel on the card.  ``sample_scan`` (the JAX
-package's lax.cond-gated scan, kept there for equivalence tests) waits
-for a later slice.
+  * ``sample_scan`` — the fully-stepped form of Algorithm 1: every t
+    from T down to 1, with the network called only where some tau
+    equals t (the JAX package's ``lax.cond``-gated scan).  It exists for
+    equivalence tests: each step reads ``(tau == t).any()`` on the host.
+
+All three decode through :func:`repro_torch.core.decode.fused_update` —
+the ``dndm_update`` CUDA kernel on the card.
 """
 from __future__ import annotations
 
@@ -71,6 +74,28 @@ def sample(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
     x = loop.host_loop(times, x, step, gumbels, on_step=on_step,
                        step_attrs=step_attrs)
     return SamplerOutput(tokens=x, nfe=len(times), aux=aux)
+
+
+def sample_scan(generator, denoise_fn: DenoiseFn, noise: NoiseDist,
+                dist: TransitionDist, batch: int, N: int, cond=None,
+                cfg: SamplerConfig = SamplerConfig(), version: int = 1,
+                order: str = "iid", shared_tau: bool = True, device=None,
+                draws=None) -> SamplerOutput:
+    """Faithful DNDM stepped over all T times: a step whose t no tau
+    equals makes no network call and no draw, so the NFE counts the calls
+    and equals Algorithm 1's.  ``draws`` as for :func:`sample`, with one
+    Gumbel slab per network call."""
+    tau, x, gumbels, _ = loop.setup(generator, noise, batch, N, dist=dist,
+                                    order=order, shared=shared_tau,
+                                    device=device, draws=draws)
+    step = _step_fn(denoise_fn, noise, cfg, tau, cond, version, dist.T,
+                    batch, device, generator)
+    nfe = 0
+    for t in range(dist.T, 0, -1):
+        if bool((tau == t).any()):
+            x = step(x, t, None if gumbels is None else gumbels[nfe])
+            nfe += 1
+    return SamplerOutput(tokens=x, nfe=nfe, aux={"tau": tau})
 
 
 def reveal_telemetry(tau_np, times, aux: dict, sampler: str,

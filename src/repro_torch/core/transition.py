@@ -187,6 +187,14 @@ def nfe_of(tau: torch.Tensor, T: int) -> torch.Tensor:
     return transition_mask_per_step(tau, T).sum(0)
 
 
+def expected_nfe_mc(dist: TransitionDist, N: int, batch: int,
+                    generator: torch.Generator) -> float:
+    """Monte-Carlo E|T| over ``batch`` rows of ``N`` tokens (held against
+    Theorem D.1's :meth:`TransitionDist.expected_nfe` in the tests)."""
+    tau = dist.sample(generator, (batch, N), device=generator.device)
+    return float(nfe_of(tau, dist.T).float().mean())
+
+
 def transition_mask_per_step(tau: torch.Tensor, T: int) -> torch.Tensor:
     """(T, batch) bool: does step t host at least one transition in the
     row?"""

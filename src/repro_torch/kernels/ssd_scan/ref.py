@@ -10,7 +10,10 @@ step-by-step recurrence (``repro/kernels/ssd_scan/ref.py``), the ground
 truth both the chunked form and the kernel must match.  ``chunk_states``
 and ``chunk_cb`` (pass 1), ``carry_states`` (pass 2) and ``chunk_output``
 (pass 3) are the plain versions of the kernel's passes, in f32 as the
-kernel computes them; ``ssd_passes`` composes them.
+kernel computes them; ``ssd_passes`` composes them.  ``ssd_chunked``
+is also the scan a Mamba-2 block trains through; its one departure from
+the reference keeps that gradient finite (the intra-chunk decay's
+masked entries are exponentiated at 0), with the same values.
 
 Shapes: x (B,S,H,P); dtv (B,S,H); A (H,) f32, negative; Bm, Cm (B,S,N),
 shared across heads.  Both return (y (B,S,H,P) in x's dtype, final state
@@ -54,8 +57,14 @@ def ssd_chunked(x, dtv, A, Bm, Cm, chunk: int):
     # intra-chunk quadratic form: decay(j -> i) = exp(cs_i - cs_j), j <= i
     gap = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (B,nc,L,L,H)
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    dec = torch.where(tri[None, None, :, :, None], torch.exp(gap),
-                      torch.zeros((), dtype=gap.dtype, device=x.device))
+    # the masked entries (j > i) are exponentiated at 0, not at their gap:
+    # a gap there can pass exp's range, and the backward of the mask
+    # would multiply its zero by inf (the reference's gradient goes NaN);
+    # the kept entries are the reference's, bitwise
+    zero = torch.zeros((), dtype=gap.dtype, device=x.device)
+    dec = torch.where(tri[None, None, :, :, None],
+                      torch.exp(torch.where(tri[None, None, :, :, None], gap,
+                                            zero)), zero)
     cb = _einsum("bcin,bcjn->bcij", Cc, Bc)            # (B,nc,L,L)
     M = cb[..., None] * dec * dtc[:, :, None, :, :]    # weight dt_j at col j
     y_intra = _einsum("bcijh,bcjhp->bcihp", M, xc)

@@ -78,6 +78,18 @@ def to_jax_tree(state: dict, unit: tuple[str, ...], n_super: int) -> dict:
     return tree
 
 
+def jax_path(name: str, unit: tuple[str, ...]) -> tuple[str, bool]:
+    """The JAX tree path of the port's parameter ``name`` and whether the
+    leaf there is stacked along ``n_super`` (``blocks.{k}.rest`` is slot
+    ``k % len(unit)`` of ``unit/b{i}/rest``), as :func:`to_jax_tree`
+    places it."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return "/".join(parts), False
+    return "/".join(["unit", f"b{int(parts[1]) % len(unit)}", *parts[2:]]), \
+        True
+
+
 def _put(tree: dict, parts: list[str], leaf) -> None:
     for p in parts[:-1]:
         tree = tree.setdefault(p, {})

@@ -3,10 +3,16 @@
 
 The sequence is cut into chunks of ``ssd_chunk``; inside a chunk the
 recurrence is a quadratic form, across chunks an f32 state of shape
-(H, N, P) is carried.  The scan goes through
+(H, N, P) is carried.  The scan is routed by whether autograd records
+it.  Serving (under ``torch.inference_mode``) goes through
 :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan`: the hand-written CUDA
-kernel for CUDA tensors, the plain chunked version (the JAX package's
-``_ssd_scan_ref`` op for op) for CPU tensors.  In denoiser mode
+kernel for CUDA tensors, the plain chunked version for CPU tensors.  A
+forward that autograd records (training) goes through the plain chunked
+version, ``kernels/ssd_scan/ref.py::ssd_chunked``, on either device: it
+computes the JAX package's ``_ssd_scan_ref``, the scan that the
+reference's model always runs, with a gradient that stays finite where
+the reference's goes NaN, and the kernel has no backward.  In
+denoiser mode
 (``bidirectional=True``) the block runs once forward and once over the
 flipped sequence and sums the two.
 
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import RMSNorm, dense_init
 
@@ -117,7 +124,11 @@ class Mamba2(nn.Module):
         A = -torch.exp(self.A_log.float())
         # views into xBC: the kernel reads them through strides
         xh = x.reshape(B, S, cfg.ssm_heads, cfg.ssm_head_dim)
-        y, _ = ssd_ops.ssd_scan(xh, dtv, A, Bm, Cm, chunk=cfg.ssd_chunk)
+        if torch.is_grad_enabled() and any(
+                a.requires_grad for a in (xh, dtv, A, Bm, Cm)):
+            y = ssd_ref.ssd_chunked(xh, dtv, A, Bm, Cm, cfg.ssd_chunk)[0]
+        else:
+            y, _ = ssd_ops.ssd_scan(xh, dtv, A, Bm, Cm, chunk=cfg.ssd_chunk)
         y = y + xh * self.D[:, None]
         return self._post(y.reshape(B, S, d_in).to(u.dtype), z)
 

@@ -75,7 +75,9 @@ class Model(nn.Module):
         cfg = self.cfg
         if causal is None:
             causal = not cfg.bidirectional
-        h = F.embedding(tokens, self.embed)
+        h = (_sharded_embedding(tokens, self.embed)
+             if device_lib.is_sharded(self.embed)
+             else F.embedding(tokens, self.embed))
         if t is not None and self.time is not None:
             h = h + self.time(t)[:, None]
         h = frontend.fuse(h, frontend_embeds)
@@ -153,3 +155,36 @@ class Model(nn.Module):
                          if name != "router")
         inactive = moe_leaves * (1 - cfg.experts_per_token / cfg.n_experts)
         return int(total - inactive)
+
+
+def _sharded_embedding(tokens, embed):
+    """``F.embedding`` of DTensor ``tokens`` in a DTensor table whose rows
+    (the vocab) may be sharded, vocab-parallel: each rank looks its tokens
+    up in its own rows (zeros where a token lies outside them), and one
+    sum over the axes that shard the rows completes them.  DTensor's own
+    lookup leaves a masked partial sum whose backward it cannot always
+    redistribute; this one is placed as the tokens are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = embed.device_mesh
+    row_axes = [i for i, p in enumerate(embed.placements) if p == Shard(0)]
+    if any(p != Shard(0) and not p.is_replicate() for p in embed.placements):
+        raise ValueError(f"embedding placements {embed.placements}: only "
+                         "the rows may be sharded")
+    rows = embed.to_local(grad_placements=[
+        p if i in row_axes else Partial()
+        for i, p in enumerate(embed.placements)])
+    lo = 0
+    for i in row_axes:                    # nested shards, outer axis first
+        lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+    lo *= rows.shape[0]
+    tok = tokens.redistribute(mesh, [
+        Replicate() if i in row_axes else p
+        for i, p in enumerate(tokens.placements)]).to_local()
+    inside = (tok >= lo) & (tok < lo + rows.shape[0])
+    h = F.embedding(torch.where(inside, tok - lo, 0), rows) * inside[
+        ..., None].to(rows.dtype)
+    h = DTensor.from_local(h, mesh, [
+        Partial() if i in row_axes else p
+        for i, p in enumerate(tokens.placements)])
+    return h.redistribute(mesh, [Replicate() if i in row_axes else p
+                                 for i, p in enumerate(tokens.placements)])

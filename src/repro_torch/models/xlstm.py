@@ -18,7 +18,9 @@ The stabilizer constants are the reference's: the parallel form masks
 with -inf before the row max; the chunked form pads the input gate with
 -1e9 and starts m at -1e9; the denominators are max(|.|, exp(-m)) and,
 for sLSTM, max(n, 1e-6).  The log forget gate is ``logsigmoid``, the
-reference's ``-softplus(-f)``.
+reference's ``-softplus(-f)``; on a DTensor (a model sharded over a
+mesh) it is taken block by block, as its backward has no DTensor
+sharding rule.
 
 Weight layout, the JAX tree's names, so checkpoints load unchanged:
   mLSTM: up (d, 2 d_in) -> [x_m, z]; wq, wk, wv (d_in, d_in);
@@ -36,8 +38,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import is_sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import RMSNorm, dense_init, truncated_normal
+
+
+def _logsigmoid_for(x: torch.Tensor):
+    """The log-sigmoid for tensors like ``x``: ``F.logsigmoid``, or on a
+    DTensor the block-by-block form.  Decided once per forward, outside
+    the sLSTM's time loop."""
+    return _sharded_logsigmoid if is_sharded(x) else F.logsigmoid
+
+
+def _sharded_logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid`` of a DTensor: its partial sums are reduced and the
+    op runs on each rank's block, as ``log_sigmoid_backward`` has no
+    DTensor sharding rule."""
+    from torch.distributed.tensor import DTensor, Replicate
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    x = x.redistribute(x.device_mesh, pl)
+    return DTensor.from_local(F.logsigmoid(x.to_local()), x.device_mesh, pl,
+                              shape=x.shape, stride=x.stride())
+
 
 NEG = -1e9
 
@@ -142,7 +164,7 @@ class MLSTM(nn.Module):
         q, k, v = ((x_m @ w).reshape(*lead, nh, -1).float()
                    for w in (self.wq, self.wk, self.wv))
         gif = (x_m @ self.wif).float().reshape(*lead, 2, nh)
-        return q, k, v, gif[..., 0, :], F.logsigmoid(gif[..., 1, :])
+        return q, k, v, gif[..., 0, :], _logsigmoid_for(gif)(gif[..., 1, :])
 
     def _one(self, u: torch.Tensor) -> torch.Tensor:
         B, S, d = u.shape
@@ -202,15 +224,17 @@ class MLSTM(nn.Module):
 
 # ====================== sLSTM ======================
 
-def _slstm_cell(r: torch.Tensor, x_t: torch.Tensor, state: dict) -> dict:
+def _slstm_cell(r: torch.Tensor, x_t: torch.Tensor, state: dict,
+                logsigmoid) -> dict:
     """x_t: (B, 4 d) input pre-activations; r: (nh, dh, 4 dh); state:
-    c, n, m, h of (B, nh, dh), f32.  Returns the new state."""
+    c, n, m, h of (B, nh, dh), f32; ``logsigmoid`` from
+    ``_logsigmoid_for``.  Returns the new state."""
     nh, dh = r.shape[0], r.shape[1]
     rec = torch.bmm(state["h"].transpose(0, 1),
                     r.float()).transpose(0, 1)            # (B,nh,4dh)
     raw = x_t.reshape(-1, nh, 4 * dh).float() + rec
     i_r, f_r, z_r, o_r = raw.chunk(4, dim=-1)
-    logi, logf = i_r, F.logsigmoid(f_r)
+    logi, logf = i_r, logsigmoid(f_r)
     lf_m = logf + state["m"]
     m_new = torch.maximum(lf_m, logi)
     a, b = torch.exp(lf_m - m_new), torch.exp(logi - m_new)
@@ -240,9 +264,10 @@ class SLSTM(nn.Module):
         B, S, d = u.shape
         pre = u @ self.w                                  # (B,S,4d)
         state = self.init_cache(B)
+        logsigmoid = _logsigmoid_for(pre)
         hs = []
         for t in range(S):
-            state = _slstm_cell(self.r, pre[:, t], state)
+            state = _slstm_cell(self.r, pre[:, t], state, logsigmoid)
             hs.append(state["h"])
         h = torch.stack(hs, dim=1).reshape(B, S, d).to(u.dtype)
         return self.norm(h) @ self.down
@@ -271,7 +296,8 @@ class SLSTM(nn.Module):
         """One recurrence step.  u: (B, 1, d); ``cache`` is updated in
         place."""
         B, _, d = u.shape
-        new = _slstm_cell(self.r, u[:, 0] @ self.w, cache)
+        x_t = u[:, 0] @ self.w
+        new = _slstm_cell(self.r, x_t, cache, _logsigmoid_for(x_t))
         for name, t in new.items():
             cache[name].copy_(t)
         h = new["h"].reshape(B, d).to(u.dtype)

@@ -13,7 +13,19 @@ the model holds the trained weights.  The port builds its parameters
 without gradients (serving runs under ``torch.inference_mode``);
 ``init_state`` turns them on for the model it trains.  Gradients flow
 through plain PyTorch only: the kernel wrappers raise when asked for
-one, so train with ``attn_impl`` "einsum" or "blocked".
+one, so train with ``attn_impl`` "einsum" or "blocked" (a Mamba-2 block
+scans through its plain chunked form while autograd records).
+
+Under a mesh the same step trains a model whose parameters are DTensors
+(``launch/sharding.py::shard_module``), on tokens placed by
+``tokens_spec``: the gradients come back as DTensors, DTensor sums the
+data-parallel partials, and AdamW's moments take the parameters'
+placements.  The step's draws are drawn whole, for the global batch,
+from the same generator on every rank, then placed as the tokens are,
+so the sharded step sees exactly the single-device step's draws.  The
+forward mixes DTensors with the plain tensors it builds (positions,
+masks, constants) under ``implicit_replication``, which takes a plain
+tensor as replicated.  ``loss`` and the other metrics come back whole.
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ from repro_torch.core import forward
 from repro_torch.core.losses import weighted_ce
 from repro_torch.core.noise import NoiseDist
 from repro_torch.core.schedules import Schedule
+from repro_torch.device import full, is_sharded
 from repro_torch.models import convert
 from repro_torch.models.model import Model
 from repro_torch.training.optim import AdamW
@@ -51,6 +64,9 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
 
     def loss_fn(batch, generator, draws):
         x0 = batch["x0"]
+        if draws is None and is_sharded(x0):
+            draws = _placed_draws(generator, x0, schedule, noise,
+                                  continuous_time)
         if continuous_time:
             x_t, t, alpha_t = forward.corrupt_continuous(
                 generator, x0, schedule, noise, draws=draws)
@@ -67,6 +83,11 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
                             causal=False, return_aux=True)
         if src is not None:
             logits = logits[:, src.shape[1]:]
+        if is_sharded(logits):
+            # the gold logit's torch.gather in losses._ce has no sharding
+            # rule that holds on vocab-sharded logits: place them as the
+            # tokens are (the vocab whole on every rank) before the loss
+            logits = logits.redistribute(x0.device_mesh, x0.placements)
 
         ce_loss, acc, _ = weighted_ce(logits, x0, x_t, alpha_t, noise,
                                       lambda_weighting)
@@ -78,6 +99,16 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
 
     def step(state, batch, generator, draws=None):
         params = state["params"]
+        if any(is_sharded(p) for p in params.values()):
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+            with implicit_replication():
+                state, metrics = run(state, batch, generator, draws)
+            return state, {k: full(v) for k, v in metrics.items()}
+        return run(state, batch, generator, draws)
+
+    def run(state, batch, generator, draws):
+        params = state["params"]
         leaves = list(params.values())
         B = batch["x0"].shape[0]
         if B % microbatches:
@@ -86,7 +117,8 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
         mb = B // microbatches
         grads = metrics = None
         for i in range(microbatches):
-            sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            sub = batch if microbatches == 1 else {
+                k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, m_i = loss_fn(sub, generator,
                                 None if draws is None else draws[i])
             g_i = torch.autograd.grad(loss, leaves)
@@ -105,6 +137,23 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
                 "step": state["step"] + 1}, metrics
 
     return step
+
+
+def _placed_draws(generator, x0, schedule, noise, continuous: bool) -> dict:
+    """The whole batch's corruption draws, from ``generator`` as the
+    single-device step draws them, then placed as the DTensor ``x0`` is
+    (a draw of fewer dims replicates where ``x0`` shards a dim it lacks).
+    Every rank draws the same values and keeps its own block."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    draws = forward.training_draws(generator, tuple(x0.shape), schedule,
+                                   noise, continuous=continuous,
+                                   device=x0.device)
+    out = {}
+    for k, v in draws.items():
+        pl = [Replicate() if isinstance(p, Shard) and p.dim >= v.dim()
+              else p for p in x0.placements]
+        out[k] = distribute_tensor(v, x0.device_mesh, pl, src_data_rank=None)
+    return out
 
 
 def init_state(model: Model, optimizer: AdamW) -> dict:

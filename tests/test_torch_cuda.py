@@ -307,3 +307,32 @@ def test_ssd_scan_rejects_misaligned_f32_views(gen, which):
     with pytest.raises(ValueError, match="16-byte"):
         k4_ops.ssd_scan(*args.values(), chunk=16)
     assert k4_ops.ssd_scan.launches == before
+
+
+def test_moe_shard_map_on_one_rank_of_nccl(gen, tmp_path):
+    """The sharded MoE dispatch on a world-size-1 NCCL group and a (1, 1)
+    ("data", "model") mesh: with m = 1 it takes the expert-parallel
+    branch, so all_to_all_single and all_gather run on NCCL, and y is
+    bitwise the global dispatch's."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.moe import MoE
+    cfg = ModelConfig(name="t", arch_type="moe", n_layers=1, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=50,
+                      block_pattern=("moe",), n_experts=8,
+                      experts_per_token=2)
+    layer = MoE(gen, cfg, device="cuda")
+    x = torch.randn(4, 16, 64, generator=gen, device="cuda")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), "cuda")
+        with torch.inference_mode():
+            want, _ = layer(x)
+            layer.cfg = cfg.replace(moe_dispatch="shard_map")
+            with mesh_lib.use_mesh(mesh):
+                got, _ = layer(x)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)

@@ -58,6 +58,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
               "repro_torch.core.samplers.stepwise",
               "repro_torch.serving.engine", "repro_torch.serving.scheduler",
               "repro_torch.launch.serve", "repro_torch.launch.train",
+              "repro_torch.launch.mesh", "repro_torch.launch.sharding",
               "repro_torch.models.convert",
               "repro_torch.data", "repro_torch.data.pipeline",
               "repro_torch.data.synthetic", "repro_torch.data.tokenizer",

@@ -152,6 +152,40 @@ def test_ssd_carried_states_are_the_recurrence_at_chunk_starts(chunk):
                                    atol=STATE_TOL, rtol=STATE_TOL)
 
 
+def test_plain_scan_gradient_stays_finite_past_exps_range():
+    """Decays strong enough that a chunk's masked gaps (j > i) pass exp's
+    f32 range, as zamba2-2.7b's chunk of 128 meets in training: the JAX
+    package's ``_ssd_scan_ref`` has NaN gradients there (0 x inf in the
+    backward of its mask); the port's chunked scan gives the same y and
+    finite gradients, those of the exact recurrence within 1e-4 of the
+    scale."""
+    x, dtv, A, Bm, Cm = _ssd_inputs(1, 32, 2, 4, 8, seed=5)
+    dtv = dtv * 4 + 2.0          # |dt A| of 2-14 a step: 16 steps pass 88
+    j = [jnp.asarray(a) for a in (x, dtv, A, Bm, Cm)]
+
+    def jloss(*a):
+        return j_mamba2._ssd_scan_ref(*a, 16)[0].sum()
+    jg = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(*j)
+    assert any(np.isnan(np.asarray(g)).any() for g in jg)
+
+    def tgrads(fn):
+        t = [torch.from_numpy(a).requires_grad_(True)
+             for a in (x, dtv, A, Bm, Cm)]
+        y = fn(*t)
+        return y.detach(), torch.autograd.grad(y.sum(), t)
+    y, g = tgrads(lambda *t: t_ssd_ref.ssd_chunked(*t, 16)[0])
+    y_seq, g_seq = tgrads(lambda *t: t_ssd_ref.ssd_sequential(*t)[0])
+    np.testing.assert_allclose(y.numpy(), np.asarray(j_mamba2._ssd_scan_ref(
+        *j, 16)[0]), rtol=0, atol=Y_TOL["f32"])
+    np.testing.assert_allclose(y.numpy(), y_seq.numpy(), rtol=0,
+                               atol=Y_TOL["f32"])
+    for a, b in zip(g, g_seq):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=max(1e-4 * float(b.abs().max()),
+                                            1e-6))
+
+
 def test_ssd_scan_cpu_path_counts_no_launch_and_rejects_bad_input():
     _, t = _both(_ssd_inputs(2, 48, 3, 8, 16, seed=1), "f32")
     x, dtv, A, Bm, Cm = t
