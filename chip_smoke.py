@@ -243,7 +243,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      reduced mixtral ("shard_map", capacity factor 16) with DTensor
      parameters (launch.sharding.shard_module) against the single-device
      step on the same draws at the f32 bar of tests/test_torch_training;
-     the group is destroyed before the last line.
+     the group is destroyed before the last line;
+ 17. the compile-only dry run (``repro_torch.launch.dryrun``), which
+     needs no card.  17a: in child processes (this one holds phase 16's
+     CUDA state; the dry run opens a fake process group of 256 ranks),
+     tinyllama-1.1b at train_4k, prefill_32k and decode_32k and the four
+     rungs of ``launch/perf.py``'s mixtral_train ladder, at once, on the
+     single-pod mesh: every record must be ``ok``; one line each with
+     the dominant term, the three times and the per-rank memory against
+     80 GB.  17b: the dry run's count of one network call of full-width
+     dndm-text8 (MAIN_BATCH rows, attn_impl="pallas") and of phase
+     15's trained zamba2-2.7b (ZAMBA_BATCH rows), on fake CPU tensors,
+     against the same call on the card (taken in phases 6 and 8b): the
+     aten FLOPs that FlopCounterMode counts plus the analytic FLOPs of
+     each flash_attention and ssd_scan launch, which it cannot see,
+     within DRYRUN_FLOP_TOL; then ``analysis.roofline`` on one card at
+     the f32 rate gives each call's bound in ms (the SSD scan's bytes
+     those of the fused kernel, ``Recorder.fuse``), printed beside
+     phases 6's and 8b's ms per call, the bound's share of it, and the
+     call's model FLOPs utilisation (``analysis.mfu``: 2 x parameters x
+     tokens over the f32 peak times the ms per call).
 
 The last lines are JSON: the paths, the continuous phases, the kernels, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -278,6 +297,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -492,6 +512,16 @@ MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 4, 64
 # the f32 bar of tests/test_torch_training.py (params: all but
 # MESH_ILL_CONDITIONED of the elements, each within 2 x the sum of lr)
 MESH_RTOL, MESH_ATOL, MESH_ILL_CONDITIONED = 1e-5, 1e-6, 1e-4
+
+
+# the compile-only dry run (phase 17): 17a's tinyllama shapes and ladder
+# (each in a child process of its own, at once), their time limit; the
+# bar for 17b's FLOPs against the card's
+DRYRUN_ARCH, DRYRUN_SHAPES = "tinyllama-1.1b", ("train_4k", "prefill_32k",
+                                                "decode_32k")
+DRYRUN_LADDER, DRYRUN_TIMEOUT = "mixtral_train", 240
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+DRYRUN_FLOP_TOL = 0.005
 
 
 def gpu_name_and_power() -> str:
@@ -2513,6 +2543,134 @@ def mesh_phase(mx_model, card: str) -> dict:
             "group_init_s": init_s, "mixtral": moe, "train": train}
 
 
+_DRYRUN_CHILD = """
+import json, sys
+from repro_torch.launch import dryrun, perf
+kind, out = sys.argv[1], sys.argv[2]
+if kind == "arch":
+    recs = [dryrun.run_one(sys.argv[3], s, False, out) for s in sys.argv[4:]]
+else:
+    recs = [perf.run_rung(sys.argv[3], sys.argv[4], out)]
+print(json.dumps(recs))
+"""
+
+
+def dryrun_children() -> list[dict]:
+    """17a: the dry run of DRYRUN_ARCH's shapes in one child process and
+    of each rung of DRYRUN_LADDER in one each, all at once; their
+    records.  Every child is killed at DRYRUN_TIMEOUT s, whatever
+    happened."""
+    from repro_torch.launch import perf
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    jobs = [["arch", str(DRYRUN_OUT), DRYRUN_ARCH, *DRYRUN_SHAPES]]
+    for pair, _, _, ladder in perf.LADDERS:
+        if pair == DRYRUN_LADDER:
+            jobs += [["rung", str(DRYRUN_OUT), pair, tag]
+                     for tag, _, _, _ in ladder]
+    procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN_CHILD, *j],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for j in jobs]
+    recs, t_end = [], time.monotonic() + DRYRUN_TIMEOUT
+    try:
+        for p, j in zip(procs, jobs):
+            out, err = p.communicate(
+                timeout=max(1.0, t_end - time.monotonic()))
+            if p.returncode:
+                raise AssertionError(f"dry run {j}: exit {p.returncode}: "
+                                     f"{err[-2000:]}")
+            recs += json.loads(out.strip().splitlines()[-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return recs
+
+
+def card_call_flops(model, batch: int, seq: int) -> dict:
+    """One network call of ``model`` (``batch`` x ``seq`` tokens, causal
+    False) on the card: the aten FLOPs FlopCounterMode counts, and the
+    analytic FLOPs of the flash_attention and ssd_scan launches it cannot
+    see (``analysis.flash_attention_flops``, ``ssd_scan_flops``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import analysis
+    cfg = model.cfg
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(2)
+    tok = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                        device=dev, dtype=torch.int32)
+    t = torch.rand(batch, generator=g, device=dev)
+    fa0, ss0 = k2_ops.flash_attention.launches, k4_ops.ssd_scan.launches
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        model(tok, t, causal=False)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    n_fa = k2_ops.flash_attention.launches - fa0
+    n_ss = k4_ops.ssd_scan.launches - ss0
+    kernel = (n_fa * analysis.flash_attention_flops(batch, seq, cfg.n_heads,
+                                                    cfg.hd)
+              + n_ss * analysis.ssd_scan_flops(
+                  batch, seq, cfg.ssm_heads, cfg.ssm_head_dim,
+                  cfg.ssm_state, cfg.ssd_chunk))
+    aten = fc.get_total_flops()
+    return {"aten_flops": aten, "kernel_flops": kernel,
+            "flops": aten + kernel,
+            "launches": {"flash_attention": n_fa, "ssd_scan": n_ss}}
+
+
+def dryrun_phase(card: str, calls: dict) -> dict:
+    """Phase 17 (module docstring).  ``calls``: {name: (cfg, batch, seq,
+    :func:`card_call_flops` of the call, its measured ms per call)}."""
+    from repro_torch.launch import analysis, dryrun
+    t0 = time.perf_counter()
+    recs = dryrun_children()
+    children_s = time.perf_counter() - t0
+    bad = [r for r in recs if r["status"] != "ok"]
+    for r in recs:
+        print(f"dryrun ({card}; a model of the H100, not a measurement): "
+              f"{r['arch']} x {r['shape']}{r.get('tag', '')}: "
+              f"{dryrun.summary(r)}", flush=True)
+    if bad:
+        raise AssertionError(f"dry run records not ok: "
+                             f"{[(r['arch'], r['shape'], r['error']) for r in bad]}")
+    compared = {}
+    for name, (cfg, batch, seq, on_card, ms) in calls.items():
+        dry = dryrun.count_call(cfg, batch, seq)
+        rel = abs(dry["flops"] - on_card["flops"]) / on_card["flops"]
+        terms = analysis.roofline(
+            {"flops": dry["flops"], "bytes accessed": dry["bytes"]}, {}, 1,
+            dry["model_flops"], 0.0, dry["attn_bytes"] + dry["fused_bytes"],
+            dtype=cfg.dtype)
+        bound_ms = 1e3 * terms.bound_s
+        mfu = analysis.mfu(dry["model_flops"], ms / 1e3, 1, cfg.dtype)
+        compared[name] = {
+            "batch": batch, "seq": seq, "dry_flops": dry["flops"],
+            "card": on_card, "flops_rel_diff": rel,
+            "dry_bytes": dry["bytes"], "attn_bytes": dry["attn_bytes"],
+            "fused_bytes": dry["fused_bytes"],
+            "model_flops": dry["model_flops"],
+            "compute_ms": 1e3 * terms.compute_s,
+            "memory_ms": 1e3 * terms.memory_s, "dominant": terms.dominant,
+            "bound_ms": bound_ms, "ms_per_call": ms,
+            "bound_share": bound_ms / ms, "mfu": mfu}
+        print(f"dryrun vs card ({card}): {name} {batch} x {seq}: FLOPs "
+              f"dry run {dry['flops']:.6e}, card {on_card['flops']:.6e} "
+              f"(aten {on_card['aten_flops']:.6e} + kernels "
+              f"{on_card['kernel_flops']:.6e}, {on_card['launches']}), "
+              f"rel diff {rel:.2e}; bound {bound_ms:.3f} ms "
+              f"({terms.dominant}, f32 peak) against {ms:.3f} ms per call: "
+              f"bound share {bound_ms / ms:.3f}, mfu {mfu:.4f} (model "
+              f"FLOPs {dry['model_flops']:.6e})", flush=True)
+        if not rel <= DRYRUN_FLOP_TOL:
+            raise AssertionError(f"{name}: dry-run FLOPs {dry['flops']} "
+                                 f"against the card's {on_card['flops']}")
+    return {"card": card, "records": recs, "children_s": children_s,
+            "calls": compared}
+
+
 def zoo_sweep() -> dict:
     """Phase 8d: every registered config, at
     ``.reduced(attn_impl="pallas")`` with random weights from seed 0,
@@ -3421,6 +3579,9 @@ def main() -> int:
     untrained_ll = mean_log_likelihood(done, model.cfg.vocab_size - 1)
     print(f"main path: {counts}; full-width logits kernel vs einsum max err "
           f"{logits_err:.3g}", flush=True)
+    # 17b's card side: one network call's FLOPs, while the model is loaded
+    text8_call = (model.cfg, MAIN_BATCH, MAIN_LEN,
+                  card_call_flops(model, MAIN_BATCH, MAIN_LEN))
     # 10. (run here, while the model is loaded) the path under a profiler
     main_prof = profile_run(sched.engine, "dndm", MAIN_BATCH, MAIN_LEN)
     lap("text8_path")
@@ -3530,6 +3691,8 @@ def main() -> int:
     z_logits_err = check_denoiser(z_model, ZAMBA_LEN, batch=ZAMBA_BATCH)
     print(f"zamba2 full-width logits kernels vs plain max err "
           f"{z_logits_err:.3g}", flush=True)
+    z_call = (z_model.cfg, ZAMBA_BATCH, ZAMBA_LEN,
+              card_call_flops(z_model, ZAMBA_BATCH, ZAMBA_LEN))
     z_prof = profile_run(GenerationEngine(z_model, EngineConfig(
         method="dndm", steps=ZAMBA_PROFILE_T, noise_kind="absorbing",
         x0_mode="sample"), device="cuda"), "dndm", ZAMBA_BATCH, ZAMBA_LEN)
@@ -3558,6 +3721,16 @@ def main() -> int:
           f"{mesh['train']['params_max_abs_diff']:.3g}, bitwise "
           f"{mesh['train']['params_bitwise']}) in "
           f"{mesh['seconds']:.1f} s", flush=True)
+    # 17. the compile-only dry run: 17a's records, 17b's counts against
+    # phases 6's and 8b's calls on the card
+    dry = dryrun_phase(card, {
+        "dndm-text8": (*text8_call,
+                       1e3 * stats["timed_wall_s"] / stats["timed_nfe"]),
+        "zamba2-2.7b": (*z_call,
+                        1e3 * z_stats["timed_wall_s"] / z_stats["timed_nfe"])})
+    lap("dryrun")
+    print(f"dryrun: {len(dry['records'])} records ok in "
+          f"{dry['children_s']:.1f} s of child processes", flush=True)
     # 8d. every config, reduced, through one dndm batch
     zoo = zoo_sweep()
     print(f"zoo sweep: {len(zoo)} configs; NFE "
@@ -3721,6 +3894,7 @@ def main() -> int:
         "card": card, **telemetry}}))
     print(json.dumps({"training": train}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"device_kernels_per_call": dev_kernels}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": kernels}))

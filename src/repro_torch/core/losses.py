@@ -23,13 +23,13 @@ from repro_torch.core import forward
 from repro_torch.core.noise import NoiseDist
 from repro_torch.core.posterior import posterior
 from repro_torch.core.schedules import Schedule
+from repro_torch.device import gather_last
 
 
 def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Per-token cross entropy, stable."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return logz - gold
+    return logz - gather_last(logits, targets)
 
 
 def weighted_ce(logits, x0, x_t, alpha_t, noise: NoiseDist,

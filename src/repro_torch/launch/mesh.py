@@ -15,6 +15,14 @@ either.
 ``use_mesh`` makes a mesh ambient, the counterpart of ``jax.set_mesh``:
 the MoE layer's "shard_map" dispatch reads it through
 :func:`current_mesh`.
+
+``fake_world(n)`` opens a process group of ``n`` ranks in one process, as
+rank 0, for the dry run (``launch/dryrun.py``): PyTorch's "fake" backend
+completes every collective at once without moving data, so
+``make_production_mesh(device_type="cpu")`` builds the 256- or 512-rank
+mesh on fake tensors.  Its rendezvous store, ``FakeStore``, lives in
+``torch.testing._internal.distributed.fake_pg``, an internal module of
+PyTorch, the one the fake backend is registered with.
 """
 from __future__ import annotations
 
@@ -46,6 +54,23 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise ValueError(f"the {shape} mesh needs {math.prod(shape)} ranks; "
                          f"the process group has {world}")
     return make_mesh(shape, axes, device_type)
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A fake process group of ``n`` ranks, this process rank 0, for the
+    block (module docstring); destroyed on exit.  Raises if a process
+    group is already open."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a process "
+                           "group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def axis_names(mesh) -> tuple[str, ...]:

@@ -207,8 +207,10 @@ def shard_module(model: nn.Module, mesh,
     """Replace every parameter of ``model`` (built whole, identically on
     every rank) by a DTensor on ``mesh`` under ``policy``'s rules: each
     rank keeps its shard, and the sharded weights are bitwise the whole
-    ones.  In place; returns ``model``."""
+    ones.  The modules take their sharded forms (``launch/spmd.py``).
+    In place; returns ``model``."""
     from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch import spmd
     for mod_name, mod in model.named_modules():
         for pn, p in list(mod.named_parameters(recurse=False)):
             name = f"{mod_name}.{pn}" if mod_name else pn
@@ -219,7 +221,28 @@ def shard_module(model: nn.Module, mesh,
                                   src_data_rank=None)
             mod.register_parameter(pn, nn.Parameter(
                 d, requires_grad=p.requires_grad))
-    return model
+    return spmd.install(model)
+
+
+def shard_cache(cache: list, mesh, batch: int,
+                policy: ShardingPolicy) -> list:
+    """``Model.init_cache``'s caches (one dict per block, built whole) as
+    DTensors placed by :func:`cache_spec`: kind "kv" for ``k`` and ``v``,
+    "ssm" for every other leaf (the reference's ``attach`` in its
+    ``dryrun.input_specs``).  The port's leaves have no leading stack
+    dim, so each is specced with one of size 1."""
+    from torch.distributed.tensor import distribute_tensor
+    out = []
+    for c in cache:
+        placed = {}
+        for name, leaf in c.items():
+            kind = "kv" if name in ("k", "v") else "ssm"
+            spec = cache_spec(mesh, (1, *leaf.shape), batch, policy,
+                              kind)[1:]
+            placed[name] = distribute_tensor(
+                leaf, mesh, placements(spec, mesh), src_data_rank=None)
+        out.append(placed)
+    return out
 
 
 def shard_batch(batch: dict, mesh, policy: ShardingPolicy) -> dict:

@@ -1,11 +1,14 @@
 """Grouped-query attention with RoPE and sliding windows.
 
-Three interchangeable inner implementations (``cfg.attn_impl``):
-  einsum  — plain S^2 attention
-  blocked — online softmax over KV chunks in plain PyTorch
-  pallas  — the hand-written CUDA flash kernel
-            (``repro_torch/kernels/flash_attention``) on CUDA tensors, its
-            plain version on CPU tensors
+Interchangeable inner implementations (``cfg.attn_impl``):
+  einsum           — plain S^2 attention
+  blocked          — online softmax over KV chunks in plain PyTorch
+  blocked_unrolled — the same: the chunk loop is a Python loop either way
+                     (the reference unrolls its ``lax.scan`` for the dry
+                     run's cost analysis)
+  pallas           — the hand-written CUDA flash kernel
+                     (``repro_torch/kernels/flash_attention``) on CUDA
+                     tensors, its plain version on CPU tensors
 
 Mask semantics: ``causal`` plus optional ``sliding_window`` (only the last
 W positions visible), additive ``NEG = -1e9``.  The diffusion denoiser
@@ -18,6 +21,10 @@ i holds position ``pos - ((pos mod L - i) mod L)``; slots of a negative
 position, or past the window, get ``NEG`` (``ref.ring_bias``).  "pallas"
 decodes through the CUDA kernel ``flash_decode``, which builds that bias
 itself.  The cache is updated in place; ``pos`` is a Python int.
+
+Under a mesh ``launch/sharding.py::shard_module`` swaps this class for
+``launch/spmd.py``'s sharded form, which overrides ``_split_heads``,
+``_merge_heads``, ``_attend`` and ``_decode_attend``.
 """
 from __future__ import annotations
 
@@ -68,11 +75,11 @@ def _blocked_attn(q, k, v, bias, block_k: int):
 
 
 def _plain(q, k, v, bias, cfg: ModelConfig):
-    """The "einsum" and "blocked" routes: q (B,Sq,H,hd), k and v
-    (B,Sk,KV,hd), bias (Sq, Sk) -> (B,Sq,H,hd)."""
-    k = _repeat_kv(k, cfg.n_heads)
-    v = _repeat_kv(v, cfg.n_heads)
-    if cfg.attn_impl == "blocked":
+    """The "einsum", "blocked" and "blocked_unrolled" routes: q
+    (B,Sq,H,hd), k and v (B,Sk,KV,hd), bias (Sq, Sk) -> (B,Sq,H,hd)."""
+    k = _repeat_kv(k, q.shape[2])
+    v = _repeat_kv(v, q.shape[2])
+    if cfg.attn_impl in ("blocked", "blocked_unrolled"):
         return _blocked_attn(q, k, v, bias, cfg.attn_block_k)
     if cfg.attn_impl == "einsum":
         return _einsum_attn(q, k, v, bias)
@@ -106,21 +113,30 @@ class Attention(nn.Module):
     def _qkv(self, x, positions):
         """q, k (RoPE at ``positions``, (S,)) and v of x (B, S, d)."""
         cfg = self.cfg
-        B, S, _ = x.shape
-        hd = cfg.hd
-        q = (x @ self.wq).view(B, S, cfg.n_heads, hd)
-        k = (x @ self.wk).view(B, S, cfg.n_kv_heads, hd)
-        v = (x @ self.wv).view(B, S, cfg.n_kv_heads, hd)
-        cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+        q = self._split_heads(x @ self.wq, cfg.n_heads)
+        k = self._split_heads(x @ self.wk, cfg.n_kv_heads)
+        v = self._split_heads(x @ self.wv, cfg.n_kv_heads)
+        cos, sin = rope_freqs(cfg.hd, cfg.rope_theta, positions)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+    def _split_heads(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """(B, S, n * hd) -> (B, S, n, hd)."""
+        return t.view(*t.shape[:-1], n, self.cfg.hd)
+
+    def _merge_heads(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, S, H, hd) -> (B, S, H * hd)."""
+        return y.reshape(*y.shape[:2], -1)
+
+    def _attend(self, q, k, v, *, causal: bool, window: int):
+        return _inner(q, k, v, self.cfg, causal=causal, window=window)
 
     def forward(self, x: torch.Tensor, *, causal: bool,
                 window: int = 0) -> torch.Tensor:
         """Full-sequence attention.  x: (B, S, d)."""
-        B, S, _ = x.shape
+        S = x.shape[1]
         q, k, v = self._qkv(x, torch.arange(S, device=x.device))
-        y = _inner(q, k, v, self.cfg, causal=causal, window=window)
-        return y.reshape(B, S, self.cfg.n_heads * self.cfg.hd) @ self.wo
+        y = self._attend(q, k, v, causal=causal, window=window)
+        return self._merge_heads(y) @ self.wo
 
     def init_cache(self, batch: int, max_seq: int, window: int,
                    dtype) -> dict:
@@ -136,19 +152,22 @@ class Attention(nn.Module):
         """One token x (B, 1, d) at position ``pos``: its k and v go to
         slot ``pos mod L`` of the cache (in place), and q attends over the
         ring causally, within ``window`` if set.  Returns (B, 1, d)."""
-        cfg = self.cfg
-        B = x.shape[0]
-        L = cache["k"].shape[1]
         # arange, not a tensor from a list: no host-to-device copy
         q, k_new, v_new = self._qkv(x, torch.arange(pos, pos + 1,
                                                      device=x.device))
+        y = self._decode_attend(q, k_new, v_new, cache, pos, window)
+        return self._merge_heads(y) @ self.wo
+
+    def _decode_attend(self, q, k_new, v_new, cache: dict, pos: int,
+                       window: int) -> torch.Tensor:
+        """k_new and v_new to slot ``pos mod L`` of the cache, then q
+        (B, 1, H, hd) over the ring -> (B, 1, H, hd)."""
+        L = cache["k"].shape[1]
         slot = pos % L
         cache["k"][:, slot] = k_new[:, 0]
         cache["v"][:, slot] = v_new[:, 0]
-        if cfg.attn_impl == "pallas":
-            y = flash_ops.flash_decode(q, cache["k"], cache["v"], pos=pos,
-                                       window=window)
-        else:
-            bias = ring_bias(pos, L, window, x.device)[None]
-            y = _plain(q, cache["k"], cache["v"], bias, cfg)
-        return y.reshape(B, 1, cfg.n_heads * cfg.hd) @ self.wo
+        if self.cfg.attn_impl == "pallas":
+            return flash_ops.flash_decode(q, cache["k"], cache["v"],
+                                          pos=pos, window=window)
+        bias = ring_bias(pos, L, window, q.device)[None]
+        return _plain(q, cache["k"], cache["v"], bias, self.cfg)

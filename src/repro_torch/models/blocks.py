@@ -20,7 +20,9 @@ block's aux losses, ``None`` for every other block.  Every block also has
 token (B, 1, d) at position ``pos`` (a Python int), causal, with the
 cache updated in place: a ring buffer of keys and values for the
 attention family (the window's length for windowed blocks, so it wraps
-past the window), the recurrent state for the mixers.
+past the window), the recurrent state for the mixers.  Each branch
+joins the residual stream through ``_add``, which the sharded forms of
+``launch/spmd.py`` override (installed by ``launch/sharding.py``).
 """
 from __future__ import annotations
 
@@ -58,19 +60,26 @@ class AttnBlock(nn.Module):
             y, aux = self.moe(self.ln2(x))
             return x + y, aux
         if self.mlp is not None:
-            x = x + self.mlp(self.ln2(x))
+            x = self._add(x, self.mlp(self.ln2(x)))
         return x, None
+
+    @staticmethod
+    def _add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """A branch's output ``y`` added to the residual stream ``x``."""
+        return x + y
 
     def forward(self, x: torch.Tensor, *,
                 causal: bool) -> tuple[torch.Tensor, dict | None]:
-        x = x + self.attn(self.ln1(x), causal=causal, window=self.window)
+        x = self._add(x, self.attn(self.ln1(x), causal=causal,
+                                   window=self.window))
         return self._ffn(x)
 
     def init_cache(self, batch: int, max_seq: int, dtype) -> dict:
         return self.attn.init_cache(batch, max_seq, self.window, dtype)
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
-        x = x + self.attn.decode_step(self.ln1(x), cache, pos, self.window)
+        x = self._add(x, self.attn.decode_step(self.ln1(x), cache, pos,
+                                               self.window))
         return self._ffn(x)[0]
 
 
@@ -86,15 +95,18 @@ class MixerBlock(nn.Module):
                           cfg.norm_eps)
         self.mixer = self.MIXERS[kind](generator, cfg, device)
 
+    _add = staticmethod(AttnBlock._add)
+
     def forward(self, x: torch.Tensor, *,
                 causal: bool) -> tuple[torch.Tensor, None]:
-        return x + self.mixer(self.ln(x), bidirectional=not causal), None
+        return self._add(x, self.mixer(self.ln(x),
+                                       bidirectional=not causal)), None
 
     def init_cache(self, batch: int, max_seq: int, dtype) -> dict:
         return self.mixer.init_cache(batch, dtype)
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
-        return x + self.mixer.decode(self.ln(x), cache)
+        return self._add(x, self.mixer.decode(self.ln(x), cache))
 
 
 def build(kind: str, generator, cfg: ModelConfig, device=None) -> nn.Module:

@@ -20,9 +20,13 @@ tensors, and "mlstm"/"slstm" are the xLSTM mixers of ``models/xlstm.py``
 matters to the JAX package's cost analysis).
 
 ``attn_impl`` keeps the JAX package's values: "einsum" (plain S^2
-attention), "blocked" (online softmax over KV chunks in plain PyTorch)
+attention), "blocked" (online softmax over KV chunks in plain PyTorch),
+"blocked_unrolled" (the same loop: the port's is unrolled either way)
 and "pallas", which in the port selects the hand-written CUDA flash
 kernel (``repro_torch/csrc/flash_attention.cu``) for CUDA tensors.
+``remat`` checkpoints each superblock while autograd records
+(``models/model.py``); ``scan_layers`` changes nothing in the port, whose
+layers are a Python loop either way.
 ``attn_block_q``/``attn_block_k`` size the "blocked" chunks; the CUDA
 kernel has fixed tiles.
 
@@ -58,7 +62,7 @@ class ModelConfig:
     head_dim: int = 0                    # 0 => d_model // n_heads
     rope_theta: float = 10_000.0
     sliding_window: int = 0              # used by "swa" blocks
-    attn_impl: str = "einsum"            # einsum | blocked | pallas (CUDA)
+    attn_impl: str = "einsum"            # einsum | blocked[_unrolled] | pallas
     attn_block_q: int = 512              # blocked/pallas tile sizes
     attn_block_k: int = 512
 

@@ -8,8 +8,8 @@ from a seeded generator.
 
 ``frontend_embeds`` occupy the first ``cfg.frontend_tokens`` positions of
 the sequence (early fusion): the model overwrites its token embeddings at
-those positions with the given vectors.  The dry-run's shape-only
-``frontend_spec`` comes with the multi-device slice.
+those positions with the given vectors.  ``frontend_spec`` is the dry
+run's shape-only stand-in (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +27,25 @@ def fake_frontend_embeds(generator: torch.Generator, cfg: ModelConfig,
     return torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
                        generator=generator, device=device,
                        dtype=getattr(torch, cfg.dtype)) * 0.02
+
+
+def frontend_spec(cfg: ModelConfig, batch: int, mesh=None,
+                  placements=None) -> torch.Tensor | None:
+    """A shape-only (batch, ``cfg.frontend_tokens``, d_model) stand-in in
+    ``cfg.dtype`` for the dry run, ``None`` without a frontend: a fake
+    tensor inside a fake tensor mode (``torch.empty`` allocates nothing
+    there), else a meta tensor.  With a ``mesh`` it is a DTensor placed
+    by ``placements``."""
+    if not cfg.frontend:
+        return None
+    from torch._guards import detect_fake_mode
+    spec = torch.empty((batch, cfg.frontend_tokens, cfg.d_model),
+                       dtype=getattr(torch, cfg.dtype),
+                       device="cpu" if detect_fake_mode() else "meta")
+    if mesh is None:
+        return spec
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(spec, mesh, placements, src_data_rank=None)
 
 
 def fuse(h: torch.Tensor,

@@ -173,7 +173,8 @@ class Mamba2(nn.Module):
         dec = torch.exp(dtv * A)                              # (B, H)
         upd = torch.einsum("bh,bn,bhp->bhnp", dtv, Bm, xh)
         state = cache["state"] * dec[..., None, None] + upd
-        y = torch.einsum("bn,bhnp->bhp", Cm, state)
+        # jnp.einsum's promotion: bf16 C against the f32 state in f32
+        y = torch.einsum("bn,bhnp->bhp", Cm.to(state.dtype), state)
         y = y + xh * self.D[:, None]
         cache["state"].copy_(state)
         cache["conv"].copy_(hist[:, 1:])

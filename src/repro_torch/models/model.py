@@ -14,7 +14,12 @@ audio/vision stub, ``models/frontend.py``) takes precomputed embeddings
 over its first ``frontend_tokens`` positions.  ``init_cache`` and
 ``decode_step`` run the stack causally one token at a time over a cache
 per entry of ``blocks`` (a "shared_attn" site has its own cache and the
-one shared weight set); the caches are updated in place.
+one shared weight set); the caches are updated in place.  With
+``cfg.remat`` set, while autograd records, each superblock (the
+``len(unit)`` consecutive entries of ``blocks``) runs under
+``torch.utils.checkpoint``: its activations are recomputed in the
+backward instead of kept, as ``jax.checkpoint`` does in the reference;
+values and gradients are the same either way.
 
 Float32 products stay float32 on the card: the port relies on PyTorch's
 default ``torch.backends.cuda.matmul.allow_tf32 == False``.
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.models import blocks, frontend
@@ -75,17 +81,19 @@ class Model(nn.Module):
         cfg = self.cfg
         if causal is None:
             causal = not cfg.bidirectional
-        h = (_sharded_embedding(tokens, self.embed)
-             if device_lib.is_sharded(self.embed)
-             else F.embedding(tokens, self.embed))
+        h = self._embed(tokens)
         if t is not None and self.time is not None:
             h = h + self.time(t)[:, None]
         h = frontend.fuse(h, frontend_embeds)
         terms = []
-        for kind, blk in zip(cfg.block_pattern, self.blocks):
-            h, aux = self._block(kind, blk)(h, causal=causal)
-            if aux is not None:
-                terms.append(aux)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for j in range(self.n_super):
+            if remat:
+                h, aux = checkpoint(self._superblock, j, h, causal,
+                                    use_reentrant=False)
+            else:
+                h, aux = self._superblock(j, h, causal)
+            terms += aux
         h = self.ln_f(h)
         logits = h @ (self.embed.T if self.head is None else self.head)
         if not return_aux:
@@ -93,6 +101,21 @@ class Model(nn.Module):
         zero = torch.zeros((), dtype=torch.float32, device=logits.device)
         return logits, {k: sum((a[k] for a in terms), zero)
                         for k in ("load_balance", "router_z")}
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.embed)
+
+    def _superblock(self, j: int, h: torch.Tensor, causal: bool):
+        """Superblock ``j``: its ``len(unit)`` consecutive entries of
+        ``blocks`` (a "shared_attn" site runs ``shared``) -> (h, the aux
+        dicts of its "moe" blocks)."""
+        terms = []
+        n = len(self.unit)
+        for kind, blk in zip(self.unit, self.blocks[j * n:(j + 1) * n]):
+            h, aux = self._block(kind, blk)(h, causal=causal)
+            if aux is not None:
+                terms.append(aux)
+        return h, terms
 
     def denoise_fn(self, cond: dict | None = None):
         """Wrap into the samplers' ``denoise_fn(x_t, t, cond)`` contract.
@@ -129,7 +152,7 @@ class Model(nn.Module):
         (B, 1, V), cache).  Causal, with no time embedding and no frontend,
         as the reference's ``decode_step``; ``cache`` is updated in place
         and returned."""
-        h = F.embedding(token, self.embed)
+        h = self._embed(token)
         for kind, blk, c in zip(self.cfg.block_pattern, self.blocks, cache):
             h = self._block(kind, blk).decode(h, c, pos)
         h = self.ln_f(h)
@@ -156,35 +179,3 @@ class Model(nn.Module):
         inactive = moe_leaves * (1 - cfg.experts_per_token / cfg.n_experts)
         return int(total - inactive)
 
-
-def _sharded_embedding(tokens, embed):
-    """``F.embedding`` of DTensor ``tokens`` in a DTensor table whose rows
-    (the vocab) may be sharded, vocab-parallel: each rank looks its tokens
-    up in its own rows (zeros where a token lies outside them), and one
-    sum over the axes that shard the rows completes them.  DTensor's own
-    lookup leaves a masked partial sum whose backward it cannot always
-    redistribute; this one is placed as the tokens are."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    mesh = embed.device_mesh
-    row_axes = [i for i, p in enumerate(embed.placements) if p == Shard(0)]
-    if any(p != Shard(0) and not p.is_replicate() for p in embed.placements):
-        raise ValueError(f"embedding placements {embed.placements}: only "
-                         "the rows may be sharded")
-    rows = embed.to_local(grad_placements=[
-        p if i in row_axes else Partial()
-        for i, p in enumerate(embed.placements)])
-    lo = 0
-    for i in row_axes:                    # nested shards, outer axis first
-        lo = lo * mesh.size(i) + mesh.get_local_rank(i)
-    lo *= rows.shape[0]
-    tok = tokens.redistribute(mesh, [
-        Replicate() if i in row_axes else p
-        for i, p in enumerate(tokens.placements)]).to_local()
-    inside = (tok >= lo) & (tok < lo + rows.shape[0])
-    h = F.embedding(torch.where(inside, tok - lo, 0), rows) * inside[
-        ..., None].to(rows.dtype)
-    h = DTensor.from_local(h, mesh, [
-        Partial() if i in row_axes else p
-        for i, p in enumerate(tokens.placements)])
-    return h.redistribute(mesh, [Replicate() if i in row_axes else p
-                                 for i, p in enumerate(tokens.placements)])

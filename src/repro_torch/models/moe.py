@@ -47,9 +47,10 @@ scatters never meet DTensor's propagation:
 
 Without an ambient mesh, without a "model" axis, with a batch that does
 not divide the data axes or with ``d_ff % m != 0`` "shard_map" falls
-through to the global dispatch, as the reference's does.  A layer whose
-input is a DTensor runs only the sharded dispatch: the global one would
-need every expert on every rank.
+through to the global dispatch, as the reference's does; expert-parallel
+tokens per data shard that do not split over the model axis raise, where
+the reference's equal slices fail in its gather.  A DTensor input that
+reaches the global dispatch runs it replicated (``launch/spmd.py``).
 
 Auxiliary losses: the load-balance loss, the router z-loss and the share
 of dropped assignments, returned for the trainer to weight.  The sharded
@@ -66,7 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.device import is_sharded
+from repro_torch.device import AllReduce, is_sharded
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, truncated_normal
@@ -107,19 +108,20 @@ class MoE(nn.Module):
             mesh = self._dispatch_mesh(B)
             if mesh is not None:
                 return _sharded_dispatch(self, x, mesh)
-        if is_sharded(x):
-            raise ValueError(
-                "a sharded MoE layer runs moe_dispatch='shard_map' under "
-                "launch.mesh.use_mesh with a 'model' axis, a batch that "
-                f"divides the data axes and d_ff divisible by it; got "
-                f"{cfg.moe_dispatch!r}, batch {B}, d_ff {cfg.d_ff}")
+        return self._global(x)
+
+    def _global(self, x: torch.Tensor, w: dict | None = None):
+        """The global (or "local"-grouped) dispatch of whole tensors, with
+        the weights ``w`` (the module's own by default)."""
+        cfg = self.cfg
+        B, S, d = x.shape
         T = B * S
         G = cfg.moe_local_groups
         groups = (G if cfg.moe_dispatch == "local" and G > 1 and T % G == 0
                   else 1)
         C = capacity(cfg, T // groups)
-        h, state, aux = self.route(x.reshape(groups, T // groups, d), C)
-        y = self.combine(self.expert_ffn(h), state)
+        h, state, aux = self.route(x.reshape(groups, T // groups, d), C, w)
+        y = self.combine(self.expert_ffn(h, w), state)
         return y.reshape(B, S, d), aux
 
     def _dispatch_mesh(self, B: int):
@@ -264,26 +266,10 @@ class _AllGather(torch.autograd.Function):
         return g.chunk(ctx.size)[ctx.rank], None
 
 
-class _AllReduce(torch.autograd.Function):
-    """The sum over ``group``.  The output is replicated, so each rank's
-    gradient is the output's, unchanged (the reference's psum)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     for a in axes:
         if mesh_lib.axis_size(mesh, a) > 1:
-            x = _AllReduce.apply(x, mesh.get_group(a))
+            x = AllReduce.apply(x, mesh.get_group(a))
     return x
 
 
@@ -351,7 +337,7 @@ def _sharded_dispatch(moe: MoE, x: torch.Tensor, mesh):
     else:
         h, state, _ = moe.route(xt[None], capacity(cfg, xt.shape[0]), w)
         y = moe.combine(moe.expert_ffn(h, w), state)[0]
-        y = _AllReduce.apply(y, model_group)                 # ff partials
+        y = AllReduce.apply(y, model_group)                 # ff partials
         # every model rank routed the same tokens: each adds 1/m of them
         n_tok, model_share = xt.shape[0], 1.0 / m
     # the aux terms of every rank's tokens together, as the global

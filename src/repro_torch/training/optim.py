@@ -42,7 +42,8 @@ def warmup_cosine(peak: float, warmup: int, total: int,
 
 
 def constant(lr: float) -> Schedule:
-    return lambda step: torch.full((), lr, dtype=torch.float32)
+    # torch.tensor of a Python float: a fake tensor mode keeps its value
+    return lambda step: torch.tensor(lr, dtype=torch.float32)
 
 
 def jax_rank(name: str, p: torch.Tensor) -> int:

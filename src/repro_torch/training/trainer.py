@@ -39,7 +39,7 @@ from repro_torch.core import forward
 from repro_torch.core.losses import weighted_ce
 from repro_torch.core.noise import NoiseDist
 from repro_torch.core.schedules import Schedule
-from repro_torch.device import full, is_sharded
+from repro_torch.device import full, is_sharded, take_rows
 from repro_torch.models import convert
 from repro_torch.models.model import Model
 from repro_torch.training.optim import AdamW
@@ -118,7 +118,7 @@ def make_train_step(model: Model, schedule: Schedule, noise: NoiseDist,
         grads = metrics = None
         for i in range(microbatches):
             sub = batch if microbatches == 1 else {
-                k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                k: take_rows(v, i * mb, mb) for k, v in batch.items()}
             loss, m_i = loss_fn(sub, generator,
                                 None if draws is None else draws[i])
             g_i = torch.autograd.grad(loss, leaves)

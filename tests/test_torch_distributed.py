@@ -20,7 +20,13 @@ it instead of stalling the suite.  One run serves every test here:
   single-device port step at test_torch_training.py's f32 bar, and one
   step on the step's own generator against the single-device step on
   the same generator;
-* ``launch/train.py --data-axis 2 --reduced --device cpu`` for 2 steps.
+* ``launch/train.py --data-axis 2 --reduced --device cpu`` for 2 steps;
+* ``Model.decode_step`` of sharded models over caches placed by
+  ``launch/sharding.py::shard_cache`` (batch on "data", or for a batch
+  of 1 the slots, a ring past its window included; kv heads on
+  "model"), the dense, zamba and xLSTM families and a MoE layer on the
+  global dispatch (run replicated on DTensors), against the same model
+  whole, at the f32 bar of decode (atol 2e-5, rtol 2e-5).
 """
 import dataclasses
 import os
@@ -131,12 +137,34 @@ def _train_inputs():
     return cases
 
 
+DECODE = {
+    "dense_b4": (dict(block_pattern=("attn", "swa"), n_layers=2), 4, 8),
+    "swa_ring_b1": (dict(block_pattern=("swa",) * 2, n_layers=2,
+                         sliding_window=4), 1, 8),
+    "zamba_b4": (dict(block_pattern=("mamba2", "shared_attn") * 2,
+                      n_layers=4), 4, 6),
+    "xlstm_b2": (dict(block_pattern=("mlstm", "slstm"), n_layers=2), 2, 6),
+    "moe_global_b4": (dict(block_pattern=("moe",) * 2, n_layers=2,
+                           n_experts=4, moe_dispatch="global"), 4, 6),
+}
+
+
+def _decode_inputs():
+    rng = np.random.default_rng(11)
+    return [{"name": name,
+             "cfg": dataclasses.asdict(TModelConfig(**{
+                 **TINY, "n_experts": 0, "experts_per_token": 0, **kw})),
+             "tokens": rng.integers(0, 50, (B, S)).astype(np.int64)}
+            for name, (kw, B, S) in DECODE.items()]
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Start the ranks once for every test of this file; returns (dir,
     inputs, the ranks' logs)."""
     out = tmp_path_factory.mktemp("gloo")
-    inputs = {"moe": _moe_inputs(), "train": _train_inputs()}
+    inputs = {"moe": _moe_inputs(), "train": _train_inputs(),
+              "decode": _decode_inputs()}
     torch.save(inputs, out / "inputs.pt")
     env = {**os.environ, "WORLD_SIZE": str(WORLD), "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join(
@@ -146,7 +174,7 @@ def run(tmp_path_factory):
         with open(out / f"log.{r}", "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, str(WORKER),
-                 "moe_layer,train_steps,launcher", str(out)],
+                 "moe_layer,train_steps,launcher,decode", str(out)],
                 env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
                 stdout=log, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + TIMEOUT
@@ -367,3 +395,19 @@ def test_train_cli_with_a_data_axis(run):
     back = convert.flatten(jckpt.load(str(out / "ckpt")))
     assert {k: v.shape for k, v in back.items()} == {
         k: v.shape for k, v in shapes.items()}
+
+
+@pytest.mark.parametrize("name", list(DECODE))
+def test_sharded_decode_matches_the_whole_model(run, name):
+    """Every position's logits of the sharded decode equal the whole
+    model's; the caches were placed as the case says."""
+    got = _result(run, "decode")[name]
+    np.testing.assert_allclose(got["got"].numpy(), got["want"].numpy(),
+                               atol=2e-5, rtol=2e-5)
+    pl = got["cache_placements"]
+    if name == "swa_ring_b1":
+        assert "(Shard(dim=1), Shard(dim=2))" in pl          # slots, heads
+    elif name in ("dense_b4", "moe_global_b4"):
+        assert "(Shard(dim=0), Shard(dim=2))" in pl          # batch, heads
+    else:
+        assert "(Shard(dim=0), Replicate())" in pl           # SSM state

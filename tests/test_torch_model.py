@@ -94,7 +94,8 @@ def test_bridge_rejects_a_mismatched_tree():
         convert.load_params(tm, tree)
 
 
-@pytest.mark.parametrize("impl", ["einsum", "blocked", "pallas"])
+@pytest.mark.parametrize("impl", ["einsum", "blocked", "blocked_unrolled",
+                                  "pallas"])
 def test_text8_logits_match_jax(impl):
     jm, params, tm = _pair("dndm-text8", attn_impl=impl, attn_block_q=16,
                            attn_block_k=16)
@@ -106,6 +107,24 @@ def test_text8_logits_match_jax(impl):
     got = tm(torch.from_numpy(tok), torch.from_numpy(t), causal=False)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_blocked_unrolled_is_blocked_bitwise(causal):
+    """"blocked_unrolled" (the reference unrolls its chunk scan for the
+    dry run) computes exactly what "blocked" computes: the port's chunk
+    loop is a Python loop either way.  40 positions over chunks of 16
+    leave a ragged last chunk."""
+    _, _, blocked = _pair("dndm-text8", attn_impl="blocked",
+                          attn_block_k=16)
+    _, _, unrolled = _pair("dndm-text8", attn_impl="blocked_unrolled",
+                           attn_block_k=16)
+    rng = np.random.default_rng(5)
+    tok = torch.from_numpy(rng.integers(0, 28, (2, 40)).astype(np.int32))
+    t = torch.from_numpy(rng.random(2).astype(np.float32))
+    a = blocked(tok, t, causal=causal)
+    b = unrolled(tok, t, causal=causal)
+    assert torch.equal(a, b)
 
 
 def test_mt_prefix_logits_match_jax():

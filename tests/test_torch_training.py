@@ -384,7 +384,55 @@ def test_train_steps_match_jax(arch, microbatches, continuous):
     ``make_train_step`` (dndm-mt with a source prefix) at the f32 bar,
     the parameters as ``_assert_params_close`` holds them; AdamW on the
     launcher's warmup_cosine(3e-4, 20, 100)."""
-    jm, params, tm = _pair(arch)
+    _check_train_steps(arch, microbatches, continuous)
+
+
+@pytest.mark.parametrize("arch,microbatches", [
+    ("dndm-text8", 2), ("zamba2-2.7b", 1), ("mixtral-8x7b", 1)])
+def test_remat_train_steps_match_jax(arch, microbatches):
+    """With ``remat`` set in both packages (``jax.checkpoint`` of each
+    superblock there, ``torch.utils.checkpoint`` here), 3 steps as
+    :func:`test_train_steps_match_jax` holds them."""
+    _check_train_steps(arch, microbatches, False, remat=True)
+
+
+@pytest.mark.parametrize("arch", ["dndm-text8", "zamba2-2.7b", "xlstm-350m",
+                                  "mixtral-8x7b"])
+def test_remat_is_bitwise_and_saves_less(arch):
+    """``remat`` recomputes each superblock in the backward: the loss and
+    every gradient are bitwise those without it, and the forward saves
+    fewer bytes for the backward (zamba2's superblock holds a Mamba-2
+    block and a shared-attention site)."""
+    x0 = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 27, (4, 24)).astype(np.int32))
+    jsch, tsch = jschedules.linear(T), tschedules.linear(T)
+    jnz, tnz = _noises("absorbing", 28)
+    d = _jax_draws(jax.random.PRNGKey(6), tuple(x0.shape), jsch, jnz)
+    out = {}
+    for remat in (False, True):
+        _, _, tm = _pair(arch, remat=remat)
+        named = dict(tm.named_parameters())
+        for p in named.values():
+            p.requires_grad_(True)
+        saved = [0]
+
+        def pack(t):
+            saved[0] += t.numel() * t.element_size()
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = tlosses.reparam_ce_loss(
+                None, lambda m, x, t, c: m(x, t, causal=False), tm, x0,
+                tsch, tnz, draws=d)
+        out[remat] = (loss, torch.autograd.grad(loss, list(named.values())),
+                      saved[0])
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
+    assert out[True][2] < out[False][2]
+
+
+def _check_train_steps(arch, microbatches, continuous, **kw):
+    jm, params, tm = _pair(arch, **kw)
     jsch, tsch = jschedules.linear(T), tschedules.linear(T)
     jnz, tnz = _noises("absorbing", 28)
     jopt = joptim.AdamW(schedule=joptim.warmup_cosine(3e-4, 20, 100))

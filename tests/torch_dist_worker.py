@@ -127,6 +127,39 @@ def train_steps(inputs, out_dir):
     return res
 
 
+def decode(inputs, out_dir):
+    """``Model.decode_step`` of a sharded model over caches placed by
+    ``shard_cache`` (a batch that divides the data axis: batch on "data";
+    a batch of 1: the slots on "data"; kv heads on "model"), token by
+    token, and the same model whole on every rank; logits of every
+    position, the sharded ones gathered whole."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    mesh = _mesh()
+    policy = tsharding.ShardingPolicy()
+    res = {}
+    for case in inputs["decode"]:
+        cfg = ModelConfig(**case["cfg"])
+        whole = Model(cfg, device="cpu", seed=3)
+        sharded = Model(cfg, device="cpu", seed=3)
+        tsharding.shard_module(sharded, mesh, policy)
+        tok = torch.from_numpy(case["tokens"])
+        B, S = tok.shape
+        cw = whole.init_cache(B, S)
+        cs = tsharding.shard_cache(sharded.init_cache(B, S), mesh, B, policy)
+        want, got = [], []
+        with torch.no_grad(), tmesh.use_mesh(mesh), implicit_replication():
+            for i in range(S):
+                want.append(whole.decode_step(tok[:, i:i + 1], cw, i)[0])
+                t = tsharding.shard_batch({"t": tok[:, i:i + 1]}, mesh,
+                                          policy)["t"]
+                got.append(full(sharded.decode_step(t, cs, i)[0]))
+        res[case["name"]] = {
+            "want": torch.stack(want), "got": torch.stack(got),
+            "cache_placements": [str(v.placements) for c in cs
+                                 for v in c.values()]}
+    return res
+
+
 def launcher(inputs, out_dir):
     """``launch/train.py --data-axis 2`` on the group this process made."""
     ttrain.main(["--data-axis", "2", "--reduced", "--device", "cpu",
@@ -136,7 +169,7 @@ def launcher(inputs, out_dir):
 
 
 SCENARIOS = {"moe_layer": moe_layer, "train_steps": train_steps,
-             "launcher": launcher}
+             "launcher": launcher, "decode": decode}
 
 
 def main():
