@@ -20,11 +20,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      hd 128, window 4096) included;
   4b. flash_decode kernel (the decode form: one query row per head over
      a ring-buffer KV cache, the bias built in the kernel from (pos, L,
-     window)) vs its plain version (ref.decode_attention), f32 within
-     1e-4, bf16 within 2e-2 scaled by min(1, max |plain|) (a long
-     ring's outputs are about 0.03), at hd 64, 80 and 128, rings of
-     4096 slots and of 16 (wrapped: pos >= L, with and without a window), GQA, and
-     the decode paths' shapes (zamba2's shared block, mixtral's);
+     window); its slots split into chunks joined by a second pass) vs its
+     plain version (ref.decode_attention), f32 within 1e-4, bf16 within
+     2e-2 scaled by min(1, max |plain|) (a long ring's outputs are about
+     0.03), at every head dim, rings of 4096 slots and of 16 (wrapped: pos
+     >= L, with and without a window), GQA groups of 1, 2, 4 and 8, the
+     decode paths' shapes (zamba2's shared block, mixtral's), the chunk
+     edges (L not a multiple of the chunk, chunks the window masks whole,
+     slots never written) and phase 8g's per-layer shapes; then
+     flash_decode_partials over 2 and 4 shards of a ring (slot0 != 0),
+     the shards joined on the card (ref.combine_partials) at the same
+     bars against the plain whole;
   5. decode_scores kernel vs its plain version, K in {28, 32, 33, 100,
      257, 1000}, the shapes of the paths that decode through it (the
      ranked path's (8, 128, 28), continuous text8's (8, 256, 28), the
@@ -141,6 +147,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase 5c: a profiler that has traced the later paths drops kernel
      events, so 8e's profiles are also held to each other (the blocks'
      device time adds up to the call's within 15%) and retaken once;
+  8g. tinyllama-1.1b's long-cache decode steps at full width (22 layers,
+     d_model 2048, 32 heads on 4 kv heads of 64, d_ff 5632, vocab 32000;
+     random weights from seed 0, f32, attn_impl "pallas"): decode_32k
+     (32,768 slots; batch cut from 128 to 16, as the f32 caches of 128
+     rows would take 189 GB) and long_500k (524,288 slots, batch 1), the
+     shapes of configs/shapes.py.  The slots before the last 8 positions
+     hold seeded normal keys and values (synthetic); those 8 positions
+     decode one step each.  Checks: flash_decode 22 times a step and no
+     other kernel; the last step again through "einsum" attention on the
+     same cache within 8f's bar.  ms per step (median), the step's bytes
+     bound (the weights but the embedding's unread rows, and the caches,
+     at 3.35 TB/s) and its share, flash_decode's device time in one
+     profiled step, peak memory;
   9. kernel times at the paths' shapes beside their bounds (bytes or f32
      flops on the CUDA cores; for flash_attention and ssd_scan also the
      tensor-core bound, their flops at a third of the TF32 rate), the
@@ -148,9 +167,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      yardstick only; the port never calls it), flash_attention also at
      the ranked path's shape (8, 184, 8, 64), decode_scores also at
      (4, 256, 32000), dndm_update also at (4, 256, 32000) and (4, 256,
-     50304), flash_decode at the mixtral decode shape (2, 32, 32, 8, 128)
-     and over a ring of 4096 slots, beside scaled_dot_product_attention
-     with a query of length 1 and the ring's bias as its mask.  Two
+     50304), flash_decode at the mixtral decode shape (2, 32, 32, 8, 128),
+     over a ring of 4096 slots and at phase 8g's per-layer shapes (16,
+     32768, 32, 4, 64) and (1, 524288, 32, 4, 64), beside
+     scaled_dot_product_attention with a query of length 1 and the ring's
+     bias as its mask.  Two
      readings: ``ms`` launch-paced, the host
      enqueueing while the device runs (what a path pays per call), and
      ``device_ms`` with each timed run queued behind a busy-wait kernel
@@ -282,6 +303,13 @@ alternating pairs.
 
 runs phase 14 alone on the full-width dndm-text8 and dndm-mt models with
 TELEMETRY_MEASURE_PAIRS (10) off/on pairs per path.
+
+    python3 chip_smoke.py --measure-flash-decode
+
+times flash_decode at the long shapes of FD_SHAPES (f32, pos = L - 1)
+with the slots cut into chunks for 0.5 to 4 waves of the card's resident
+pass-1 blocks (``ops.decode_chunk`` takes one): the sweep that set that
+rule.
 
     python3 chip_smoke.py --measure-xlstm [--parent DIR]
 
@@ -451,7 +479,42 @@ K2D_CASES = [(2, 4096, 12, 12, 64, 4095, 0), (2, 4096, 32, 32, 80, 6000, 0),
              (2, 4096, 32, 8, 128, 4095, 4096), (2, 16, 12, 12, 64, 40, 0),
              (2, 16, 32, 32, 80, 47, 16), (2, 16, 32, 8, 128, 31, 16),
              (2, 32, 32, 32, 80, 31, 0), (2, 32, 32, 8, 128, 31, 4096),
-             (2, 16, 4, 2, 64, 47, 16)]
+             (2, 16, 4, 2, 64, 47, 16),
+             # the kernel's chunk edges (ops.decode_chunk): L not a multiple
+             # of the chunk, chunks the window masks whole, slots never
+             # written (pos < L) filling whole chunks; G = H / KV of 1, 2, 4
+             # and 8; phase 8g's per-layer shapes, decode_32k at 16 rows and
+             # long_500k
+             (1, 4133, 8, 1, 64, 4132, 0), (2, 4096, 16, 2, 64, 5000, 300),
+             (2, 4096, 8, 4, 128, 1000, 0), (2, 2048, 8, 8, 64, 2047, 0),
+             (2, 2048, 8, 4, 32, 2047, 0), (2, 2048, 16, 4, 16, 2047, 0),
+             (2, 2048, 32, 4, 64, 2047, 0),
+             (16, 32768, 32, 4, 64, 32767, 0),
+             (1, 524288, 32, 4, 64, 524287, 0)]
+# flash_decode_partials (phase 4b): one ring cut into 2 and 4 shards of
+# slots (slot0 != 0), the shards' partials joined on the card against the
+# plain whole; a window that masks shards whole
+K2P_CASES = [(2, 4096, 32, 8, 128, 4095, 0), (1, 8192, 32, 4, 64, 9000, 0),
+             (2, 1024, 16, 2, 64, 1500, 200), (2, 64, 4, 2, 80, 40, 0)]
+K2P_SHARDS = (2, 4)
+# flash_decode's timed shapes (B, L, H, KV, hd, window), pos = L - 1: the
+# mixtral decode path's, a full ring of 4096 slots at that shape, and
+# phase 8g's per layer; the timed calls per reading of the kernel, the
+# plain version and the library at each
+FD_SHAPES = {"path": (2, 32, 32, 8, 128, 4096),
+             "long_ring": (2, 4096, 32, 8, 128, 4096),
+             "decode_32k": (16, 32768, 32, 4, 64, 0),
+             "long_500k": (1, 524288, 32, 4, 64, 0)}
+FD_ITERS = {"path": (200, 200, 200), "long_ring": (200, 200, 200),
+            "decode_32k": (50, 3, 10), "long_500k": (50, 3, 10)}
+# phase 8g: tinyllama-1.1b at full width through its two long-cache
+# decode steps (configs/shapes.py), (shape, batch): decode_32k's batch cut
+# from 128 to 16 (its f32 caches would take 189 GB), long_500k's whole.
+# The slots before the last LONG_DECODE_POS positions hold seeded normal
+# keys and values; those positions are decoded one step each
+LONG_DECODE_ARCH = "tinyllama-1.1b"
+LONG_DECODE_SHAPES = (("decode_32k", 16), ("long_500k", 1))
+LONG_DECODE_POS = 8
 
 SWEEP_B, SWEEP_N, SWEEP_T, SWEEP_STRIDE = 4, 64, 50, 2
 DECODE_TOKENS_METHODS = frozenset({
@@ -543,6 +606,7 @@ def ptxas_summary(log: str) -> list[str]:
             base = re.search(r"(dndm_update_(?:warp|block)_kernel"
                              r"|decode_scores_(?:warp|block)_kernel"
                              r"|flash_attention_kernel|flash_decode_kernel"
+                             r"|flash_decode_join"
                              r"|ssd_state_kernel"
                              r"|ssd_carry_kernel|ssd_output_kernel)",
                              mangled)
@@ -714,6 +778,43 @@ def check_flash_decode(g) -> tuple[int, float]:
     return 2 * len(K2D_CASES), max_err
 
 
+def check_flash_decode_partials(g) -> tuple[int, float]:
+    """flash_decode_partials on shards of a ring (slot0 != 0): each of
+    K2P_CASES cut into K2P_SHARDS shards, the shards' (m, l, acc) joined
+    by ref.combine_partials on the card and held against the plain whole
+    (ref.decode_attention) at flash_decode's bars; returns (cases, max f32
+    error)."""
+    cases, max_err = 0, 0.0
+    for B, L, H, KV, hd, pos, window in K2P_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, 1, H, hd, generator=g, device="cuda").to(dt)
+            k = torch.randn(B, L, KV, hd, generator=g, device="cuda").to(dt)
+            v = torch.randn(B, L, KV, hd, generator=g, device="cuda").to(dt)
+            want = k2_ref.decode_attention(q, k, v, pos, window)
+            tol = K2_TOL[dt]
+            atol = (tol if dt == torch.float32
+                    else tol * min(1.0, float(want.float().abs().max())))
+            for shards in K2P_SHARDS:
+                n = L // shards
+                got = k2_ref.combine_partials([
+                    k2_ops.flash_decode_partials(
+                        q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n],
+                        pos=pos, window=window, ring_len=L, slot0=i * n)
+                    for i in range(shards)], dt)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                if not torch.allclose(got.float(), want.float(), atol=atol,
+                                      rtol=tol):
+                    raise AssertionError(
+                        f"flash_decode_partials joined over {shards} shards "
+                        f"!= plain at {(B, L, H, KV, hd)} {dt} pos={pos} "
+                        f"window={window}: max err {err}")
+                if dt == torch.float32:
+                    max_err = max(max_err, err)
+                cases += 1
+    return cases, max_err
+
+
 def check_decode_scores(g) -> tuple[int, float]:
     """Kernel vs plain on the card: tokens bitwise, scores within
     K3_TOL; returns (cases, max |score difference|)."""
@@ -808,6 +909,7 @@ def check_ssd_scan(g) -> dict:
 KERNELS = {"dndm_update": k1_ops.dndm_update,
            "flash_attention": k2_ops.flash_attention,
            "flash_decode": k2_ops.flash_decode,
+           "flash_decode_partials": k2_ops.flash_decode_partials,
            "decode_scores": k3_ops.decode_scores,
            "ssd_scan": k4_ops.ssd_scan}
 
@@ -1964,16 +2066,15 @@ def dndm_update_times(g, B: int, S: int, K: int, T: int):
 
 
 def measure_flash_decode(g) -> dict:
-    """flash_decode at the mixtral decode path's shape, (B, L, H, KV, hd) =
-    (2, 32, 32, 8, 128) with window 4096, and over a full ring of 4096
-    slots at that shape, f32, pos = L - 1 (every slot holds a key):
-    kernel, plain and scaled_dot_product_attention (q of length 1, the
-    ring bias as its float mask, enable_gqa) as ``measure_zamba`` takes
-    them, and the bounds.  Bytes: q and the output at 32 heads, k and v
-    at 8, each read once."""
+    """flash_decode at FD_SHAPES, f32, pos = L - 1 (every slot holds a
+    key): kernel, plain and scaled_dot_product_attention (q of length 1,
+    the ring bias as its float mask, enable_gqa) as ``measure_zamba``
+    takes them, with FD_ITERS calls per reading, the bounds and the
+    kernel's chunks.  Bytes: q and the output at H heads, k and v at KV,
+    each read once."""
     out = {}
-    B, H, KV, hd, W = DECODE_B, 32, 8, 128, 4096
-    for name, L in (("path", DECODE_POS), ("long_ring", 4096)):
+    for name, (B, L, H, KV, hd, W) in FD_SHAPES.items():
+        n_k, n_p, n_l = FD_ITERS[name]
         pos = L - 1
         q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
         k, v = (torch.randn(B, L, KV, hd, generator=g, device="cuda")
@@ -1986,12 +2087,15 @@ def measure_flash_decode(g) -> dict:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         err = float((kd() - lib().transpose(1, 2)).abs().max())
-        p1, m1, l1, m2, l2, p2 = (time_ms(f, 200)
-                                  for f in (kp, kd, lib, kd, lib, kp))
-        d1, dl1, d2, dl2 = (device_time_ms(f, 200)
-                            for f in (kd, lib, kd, lib))
+        p1, m1, l1, m2, l2, p2 = (time_ms(f, n) for f, n in (
+            (kp, n_p), (kd, n_k), (lib, n_l), (kd, n_k), (lib, n_l),
+            (kp, n_p)))
+        d1, dl1, d2, dl2 = (device_time_ms(f, n) for f, n in (
+            (kd, n_k), (lib, n_l), (kd, n_k), (lib, n_l)))
         n_bytes = 4 * (2 * B * H * hd + 2 * B * L * KV * hd)
         out[name] = {"shape": [B, L, H, KV, hd], "window": W, "pos": pos,
+                     "chunks": k2_ops.decode_splits(B, KV, L, hd, 4),
+                     "chunk_slots": k2_ops.decode_chunk(B, KV, L, hd, 4),
                      "ms": statistics.median([m1, m2]),
                      **device_fields(d1, d2),
                      "plain_ms": statistics.median([p1, p2]),
@@ -2000,7 +2104,58 @@ def measure_flash_decode(g) -> dict:
                      "library_device_ms": statistics.median([dl1[0],
                                                              dl2[0]]),
                      "max_abs_err_vs_library": err}
+        out[name]["device_bound_share"] = (out[name]["bound_ms"]
+                                           / out[name]["device_ms"])
+        del q, k, v, qt, kt, vt
     return out
+
+
+FD_SWEEP_WAVES = (0.5, 1, 1.5, 2, 3, 4)
+
+
+def measure_flash_decode_chunks() -> int:
+    """--measure-flash-decode: flash_decode's device time at FD_SHAPES'
+    long shapes over chunk lengths for FD_SWEEP_WAVES waves of the card's
+    resident pass-1 blocks (``ops.decode_blocks_per_sm`` x ``ops.SMS``),
+    ``ops.decode_chunk`` patched to each in turn."""
+    card = gpu_name_and_power()
+    print(card, flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    chosen = k2_ops.decode_chunk
+    out = {"card": card}
+    try:
+        for name in ("long_ring", "decode_32k", "long_500k"):
+            B, L, H, KV, hd, W = FD_SHAPES[name]
+            q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
+            k, v = (torch.randn(B, L, KV, hd, generator=g, device="cuda")
+                    for _ in range(2))
+            tiles = -(-L // k2_ops.DECODE_TILE)
+            cap = k2_ops.SMS * k2_ops.decode_blocks_per_sm(hd, 4)
+            rows = []
+            for waves in FD_SWEEP_WAVES:
+                want = max(1, round(waves * cap / (B * KV)))
+                per = max(-(-tiles // want),
+                          k2_ops.DECODE_MIN_CHUNK // k2_ops.DECODE_TILE)
+                chunk = min(L, per * k2_ops.DECODE_TILE)
+                k2_ops.decode_chunk = lambda *a, c=chunk: c
+                fn = lambda: k2_ops.flash_decode(  # noqa: E731
+                    q, k, v, pos=L - 1, window=W)
+                dev = statistics.median(device_time_ms(fn, 50)[0]
+                                        for _ in range(2))
+                n = -(-L // chunk)
+                rows.append({"waves": waves, "chunk": chunk, "chunks": n,
+                             "blocks": B * KV * n, "device_ms": dev})
+                print(name, rows[-1], flush=True)
+            k2_ops.decode_chunk = chosen
+            n_bytes = 4 * (2 * B * H * hd + 2 * B * L * KV * hd)
+            out[name] = {"shape": [B, L, H, KV, hd], "sweep": rows,
+                         "chosen_chunk": chosen(B, KV, L, hd, 4),
+                         **bound(n_bytes, 4 * B * H * L * hd)}
+            del q, k, v
+    finally:
+        k2_ops.decode_chunk = chosen
+    print(json.dumps({"flash_decode_chunks": out}))
+    return 0
 
 
 def measure_zamba(g) -> dict:
@@ -2742,10 +2897,11 @@ def swapped_cfg(modules, cfg):
 GEMM_RE = re.compile(r"gemm|gemv|xmma", re.I)
 
 
-def profile_call(fn, top: int = 6) -> dict:
+def profile_call(fn, top: int = 6, match: str | None = None) -> dict:
     """One call of ``fn`` (after a warm one) under torch.profiler: device
-    ms, kernel launches, the GEMM kernels' ms (by name) and the kernels
-    that take most of the time."""
+    ms, kernel launches, the GEMM kernels' ms (by name), the kernels that
+    take most of the time and, with ``match``, the ms and launches of the
+    kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         fn()
@@ -2758,13 +2914,19 @@ def profile_call(fn, top: int = 6) -> dict:
                if str(e.device_type).endswith("CUDA")]
     dev_us = [e.self_device_time_total for e in kernels]
     order = sorted(range(len(kernels)), key=lambda i: -dev_us[i])[:top]
-    return {"device_ms": sum(dev_us) / 1e3,
-            "launches": sum(e.count for e in kernels),
-            "gemm_ms": sum(u for e, u in zip(kernels, dev_us)
-                           if GEMM_RE.search(e.key)) / 1e3,
-            "top_kernels": [{"kernel": kernels[i].key[:72],
-                             "ms": dev_us[i] / 1e3,
-                             "launches": kernels[i].count} for i in order]}
+    rec = {"device_ms": sum(dev_us) / 1e3,
+           "launches": sum(e.count for e in kernels),
+           "gemm_ms": sum(u for e, u in zip(kernels, dev_us)
+                          if GEMM_RE.search(e.key)) / 1e3,
+           "top_kernels": [{"kernel": kernels[i].key[:72],
+                            "ms": dev_us[i] / 1e3,
+                            "launches": kernels[i].count} for i in order]}
+    if match:
+        rec[f"{match}_ms"] = sum(u for e, u in zip(kernels, dev_us)
+                                 if match in e.key) / 1e3
+        rec[f"{match}_launches"] = sum(e.count for e in kernels
+                                       if match in e.key)
+    return rec
 
 
 def xlstm_denoiser(model, batch: int, n_tok: int) -> dict:
@@ -2956,6 +3118,120 @@ def ring_decode() -> dict:
         raise AssertionError(f"ring slots {rec['ring_slots']}")
     return rec
 
+
+def long_decode(model, name: str, batch: int) -> dict:
+    """One of phase 8g's steps: ``batch`` rows of the model at shape
+    ``name`` of configs/shapes.py, its caches of seq_len slots filled with
+    seeded normal keys and values (synthetic: no tokens produced them),
+    then positions seq_len - LONG_DECODE_POS .. seq_len - 1 decoded one
+    step each through "pallas" attention (flash_decode).  The launch
+    counts, zeroed just before those steps and read just after:
+    flash_decode once per attention block and step, no other kernel.  The
+    last step is taken again through "einsum" attention on the same cache
+    (its slot write is idempotent: same token, position, k and v) and the
+    logits held to phase 8f's bar; one step more under torch.profiler
+    gives flash_decode's device time and its share of the step."""
+    from repro_torch.configs import shapes as shapes_lib
+    from repro_torch.models.attention import Attention
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    shp = shapes_lib.get(name)
+    S, n_pos = shp.seq_len, LONG_DECODE_POS
+    g = torch.Generator(device="cuda").manual_seed(3)
+    torch.cuda.reset_peak_memory_stats()
+    attn = [m for m in model.modules() if isinstance(m, Attention)]
+    steps = []
+    with torch.inference_mode():
+        cache = model.init_cache(batch, S)
+        for c in cache:
+            c["k"].normal_(generator=g)
+            c["v"].normal_(generator=g)
+        tok = torch.randint(0, cfg.vocab_size - 1, (batch, n_pos),
+                            generator=g, device="cuda", dtype=torch.int32)
+        torch.cuda.synchronize()
+        t_fill = time.perf_counter() - t0
+        reset_counts()
+        for i in range(n_pos):
+            ts = time.perf_counter()
+            logits, cache = model.decode_step(tok[:, i:i + 1], cache,
+                                              S - n_pos + i)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - ts))
+        counts = {k: fn.launches for k, fn in KERNELS.items()}
+        with swapped_cfg(attn, cfg.replace(attn_impl="einsum")):
+            plain, _ = model.decode_step(tok[:, -1:], cache, S - 1)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    err = float((logits - plain).abs().max())
+    scale = float(plain.abs().max())
+    if not torch.isfinite(logits).all() or \
+            err > DECODE_REL * scale + DECODE_ABS:
+        raise AssertionError(f"8g {name}: max |pallas - einsum| {err} over "
+                             f"max |einsum| {scale}")
+    n_attn = sum(k in ("attn", "swa", "shared_attn", "moe")
+                 for k in cfg.block_pattern)
+    want = {k: 0 for k in KERNELS}
+    want["flash_decode"] = n_attn * n_pos
+    if counts != want:
+        raise AssertionError(f"8g {name}: launches {counts}, expected "
+                             f"{want}")
+    prof = profile_call(lambda: model.decode_step(tok[:, -1:], cache, S - 1),
+                        match="flash_decode")
+    # the bytes a step must move: every weight once but the embedding's
+    # unread rows, and every cache slot's key and value
+    n_params = model.param_count()
+    cache_bytes = sum(c[x].numel() * c[x].element_size() for c in cache
+                      for x in ("k", "v"))
+    param_bytes = 4 * (n_params - cfg.vocab_size * cfg.d_model
+                       + batch * cfg.d_model)
+    bound_ms = 1e3 * (param_bytes + cache_bytes) / HBM_BYTES_PER_S
+    ms = statistics.median(steps)
+    del cache
+    rec = {"shape": name, "seq_len": S, "batch": batch,
+           "batch_published": shp.global_batch, "positions": n_pos,
+           "cache_gb": cache_bytes / 1e9, "param_gb": param_bytes / 1e9,
+           "launches": counts, "chunks": k2_ops.decode_splits(
+               batch, cfg.n_kv_heads, S, cfg.hd, 4),
+           "max_abs_err_vs_einsum": err, "max_abs_einsum": scale,
+           "ms_per_step": ms, "ms_steps": steps,
+           "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+           "device_ms_per_step": prof["device_ms"],
+           "device_bound_share": bound_ms / prof["device_ms"],
+           "flash_decode_device_ms": prof["flash_decode_ms"],
+           "flash_decode_share_of_device": (prof["flash_decode_ms"]
+                                            / prof["device_ms"]),
+           "flash_decode_share_of_step": prof["flash_decode_ms"] / ms,
+           "profile": prof, "peak_memory_gb": peak / 1e9,
+           "fill_s": t_fill, "seconds": time.perf_counter() - t0}
+    print(f"8g {name}: {batch} rows x {S} slots, {n_pos} steps: "
+          f"{ms:.2f} ms per step (bound {bound_ms:.2f} ms, share "
+          f"{rec['bound_share']:.3f}); flash_decode "
+          f"{prof['flash_decode_ms']:.2f} ms of {prof['device_ms']:.2f} "
+          f"device ms; max |pallas - einsum| {err:.3g} (max {scale:.3g}); "
+          f"peak {peak / 1e9:.1f} GB; {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
+def long_decode_phase(card: str) -> dict:
+    """Phase 8g: LONG_DECODE_ARCH at full width (random weights from seed
+    0, f32, attn_impl="pallas") through ``long_decode`` at each of
+    LONG_DECODE_SHAPES."""
+    t0 = time.perf_counter()
+    cfg = configs_lib.get(LONG_DECODE_ARCH).replace(attn_impl="pallas")
+    model = Model(cfg, device="cuda", seed=0)
+    rec = {"model": LONG_DECODE_ARCH, "card": card,
+           "params": model.param_count(),
+           "cache": "synthetic: seeded normal keys and values in every slot "
+                    "before the decoded positions",
+           "reduced": {"decode_32k": "batch 128 -> 16 (f32 caches of 189 "
+                                     "GB at 128)"}}
+    for name, batch in LONG_DECODE_SHAPES:
+        rec[name] = long_decode(model, name, batch)
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
 
 
 def launch_floor(name: str, logits, mask, gumbel, x=None, tau=None,
@@ -3503,6 +3779,8 @@ def main() -> int:
         return measure_decode(parent)
     if "--measure-xlstm" in sys.argv:
         return measure_xlstm(parent)
+    if "--measure-flash-decode" in sys.argv:
+        return measure_flash_decode_chunks()
     # 1. the card
     print(gpu_name_and_power(), flush=True)
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3541,6 +3819,10 @@ def main() -> int:
     print(f"flash_decode: {n2d} cases within tolerance (f32 1e-4, bf16 "
           f"2e-2 scaled by min(1, max |plain|)); max f32 err "
           f"{k2d_err:.3g}", flush=True)
+    n2p, k2p_err = check_flash_decode_partials(g)
+    print(f"flash_decode_partials: {n2p} shardings (2 and 4 shards, slot0 "
+          f"!= 0) joined within flash_decode's bars of the plain whole; max "
+          f"f32 err {k2p_err:.3g}", flush=True)
     # 5. decode_scores vs plain
     n3, k3_err = check_decode_scores(g)
     print(f"decode_scores: {n3} cases, tokens bitwise equal to plain, "
@@ -3571,6 +3853,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     decode["ring"] = ring_decode()
     lap("decode_xlstm_and_ring")
+    # 8g. tinyllama-1.1b's long-cache decode steps at full width
+    long_dec = long_decode_phase(card)
+    lap("decode_long_caches")
 
     # 6. the main path
     model, sched, done, drain_s, counts = main_path()
@@ -3785,11 +4070,17 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
          "launches": sum(r["launches"]["flash_decode"]
-                         for r in decode.values()),
+                         for r in [*decode.values(),
+                                   *(long_dec[k] for k, _ in
+                                     LONG_DECODE_SHAPES)]),
          "launches_by_model": {k: r["launches"]["flash_decode"]
                                for k, r in decode.items()},
-         "max_abs_err": k2d_err, **tfd["path"],
-         "at_long_ring": tfd["long_ring"]},
+         "launches_8g": {k: long_dec[k]["launches"]["flash_decode"]
+                         for k, _ in LONG_DECODE_SHAPES},
+         "max_abs_err": max(k2d_err, k2p_err), **tfd["path"],
+         "at_long_ring": tfd["long_ring"],
+         "at_decode_32k": tfd["decode_32k"],
+         "at_long_500k": tfd["long_500k"]},
         {"name": "decode_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_scores.cu",
          "replaces": "src/repro/kernels/decode_scores/kernel.py:35",
@@ -3875,6 +4166,7 @@ def main() -> int:
     print(json.dumps(mx_line))
     print(json.dumps(xl_line))
     print(json.dumps({"decode": {"card": card, **decode}}))
+    print(json.dumps({"decode_long": long_dec}))
     print(json.dumps({"zoo_sweep": zoo}))
     print(json.dumps({"registry_sweep": sweep}))
     card = gpu_name_and_power()

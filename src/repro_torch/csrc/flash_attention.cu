@@ -342,199 +342,540 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 namespace {
 
 // ---------------------------------------------------------------------
-// Decode form: one query row per (b, h) over a ring-buffer KV cache.
+// Decode form: one query row per (b, h) over a ring-buffer KV cache, split
+// over the cache's slots.
 //
-// Replaces _flash_kernel as repro/models/attention.py:decode_step calls
-// it (through _inner, attn_impl="pallas"): Sq = 1, Sk = L, and an additive
-// (B, 1, L) bias of the ring buffer.  Here that bias is computed in the
-// kernel from (pos, L, window), not read: slot i holds position
-// pos - back, back = (pos mod L - i) mod L, and gets -1e9 where that
-// position is negative (back > pos) or, with a window, where back >=
-// window.  f32 (m, l, acc), l clamped at 1e-30, the output in q's dtype.
-// Grouped-query attention reads kv head h / (H / KV).
+// Replaces _flash_kernel (src/repro/kernels/flash_attention/kernel.py:26)
+// as repro/models/attention.py:163-187 calls it (decode_step with
+// attn_impl="pallas"): Sq = 1, Sk = L, and an additive (B, 1, L) bias of
+// the ring buffer.  Here that bias is computed in the kernel, not read:
+// slot i of a ring of ring_len slots holds position pos - back, back =
+// (pos mod ring_len - i) mod ring_len, and gets -1e9 where that position
+// is negative (back > pos) or, with a window, where back >= window.  The
+// kernel is given the slots slot0 .. slot0 + L - 1 of the ring: all of
+// them (slot0 = 0, ring_len = L) for a whole cache, one rank's share
+// where ranks shard the slots.  f32 (m, l, acc), l clamped at 1e-30, the
+// output in q's dtype.  Grouped-query attention: the G = H / KV query
+// heads of kv head h / G share its keys and values.
 //
-// What bounds it: bytes.  Each query head reads its kv head's L x hd keys
-// and values once for 4 L hd flops, 1 flop per byte in f32; at (B, L, H,
-// KV, hd) = (2, 4096, 32, 8, 128) the caches are 67.1 MB, 0.020 ms at
-// 3.35 TB/s.
+// What bounds it: bytes.  Each key and value row of the cache must be
+// read once per step, 8 hd bytes in f32, for 4 G hd flops: at G <= 8 at
+// most 4 flops per byte, against the card's f32 ridge of 67 / 3.35 = 20
+// flops per byte, so the CUDA cores keep up and no tensor core is needed.
+// At (B, L, H, KV, hd) = (2, 4096, 32, 8, 128) the caches are 67.1 MB,
+// 0.020 ms at 3.35 TB/s; one layer of tinyllama-1.1b's long_500k step
+// (1, 524288, 32, 4, 64) reads 1.07 GB, 0.32 ms.
 //
-// Design (simple first; a split of L over several blocks for long caches
-// is later work): one block of 8 warps per (b, h).  Warp w takes the keys
-// in tiles of 32, tiles w, w + 8, ...: lane j of a tile computes its own
-// key's score (the k row by 16-byte loads against q in registers), the
-// warp joins the 32 scores into its running (m, l) with shuffles, the
-// tile's p go through shared memory to the P v step, where lane d owns
-// output dims d, d + 32, ... (coalesced reads of each v row), and at the
-// end the 8 warps' (m, l, acc) are joined in shared memory.  Scores are in
-// base 2 (times log2 e), as in the kernel above.
+// Design.  Pass 1 runs a grid of (chunk of slots) x (b, kv head, group of
+// at most 8 of its query heads): many blocks per (b, kv head), so a long
+// cache spreads over every SM, and one block computes every query head of
+// its kv head, so each key and value row leaves device memory once per
+// step.  A block of 4 warps walks its chunk in 64-slot tiles of k and v,
+// staged in shared memory by 16-byte cp.async three deep, so the copies
+// of the next two tiles overlap the arithmetic on this one (bf16 is
+// staged as it is and widened when read).  Scores: thread (j, part) takes
+// slot j of the tile against 4 query heads, q pre-scaled by scale log2 e
+// in shared memory and read as broadcasts; the tile's max per head joins
+// within a warp by a transposed butterfly (4 values over 32 lanes in 6
+// shuffles) and across the two warps of a part in shared memory.  The
+// online softmax runs in base 2 (exp2); every thread keeps the running
+// max of each head, so the per-thread partial sums l join only at the
+// end.  P v: thread (slice, subset) owns 16 bytes of hd for every head of
+// the group and the slots subset, subset + n, ... of each tile, reading
+// the 8 heads' p of a slot as two broadcast 16-byte loads; the subsets'
+// sums join once, at the end.  Each block writes its chunk's (m, l,
+// acc[hd]) to an f32 workspace, or the output itself when there is one
+// chunk (one launch).  The wrapper sets the chunk (ops.py: decode_chunk)
+// so that the chunks of all (b, kv head) pairs fill the card's resident
+// blocks once: of 0.5 to 4 waves, one wave was fastest (chip_smoke.py
+// --measure-flash-decode).  Pass 2 joins the chunks for each (b, h):
+// M = max m_c, l = sum exp(m_c - M) l_c, out = sum exp(m_c - M) acc_c /
+// max(l, 1e-30).  A chunk whose slots are all masked holds m ~ -1e9 and drops
+// out (exp(-1e9 - M) = 0), as masked keys do in the reference's softmax.
+// The partials entry returns the joined (m, l, acc) unnormalised, m in
+// natural-log units, for a softmax completed over ranks that shard the
+// slots (launch/spmd.py).
 
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeThreads = 32 * kDecodeWarps;
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecTile = 64;              // slots per shared-memory tile
+constexpr int kDecGroup = 8;              // query heads per block, at most
+constexpr int kDecHalf = kDecGroup / 2;   // heads per thread in the scores
+constexpr int kDecStages = 3;             // cp.async pipeline depth
+constexpr int kJoinThreads = 256;  // pass 2
+constexpr float kLn2 = 0.6931471805599453f;
+static_assert(kDecThreads == 2 * kDecTile, "thread (j, part) per score");
+static_assert(kDecHalf == 4, "the butterfly joins 4 heads");
 
-// q . k for one cached key row, f32; four partial sums.
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;         // (B, 1, H, hd) in T; null: write the partials
+  float* pm;       // (B, H, C) partial max, natural-log units
+  float* pl;       // (B, H, C) partial sum
+  float* pacc;     // (B, H, C, hd) partial weighted values
+  int L, H, KV, G, gs, ng;  // ng groups of gs query heads per kv head
+  long long qsb, qsh;
+  Strides ks, vs;
+  long long osb, osh;
+  int pos, window, ring_len, slot0, chunk, C;
+  float scale2;    // scale * log2 e
+};
+
 template <typename T, int HD>
-__device__ __forceinline__ float row_dot(const T* __restrict__ kp,
-                                         const float (&q)[HD]) {
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  if constexpr (sizeof(T) == 4) {
+struct DecodeShape {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kPitch = HD + kVec;  // row pitch: no bank conflicts
+  static constexpr int kSlices = HD / kVec;  // 16-byte slices of a row
+  static constexpr int kSubs = kDecThreads / kSlices;  // P v slot subsets
+  static constexpr int kStage = 2 * kDecTile * kPitch;  // k and v, elements
+  static constexpr int kStageBytes =
+      kDecStages * kStage * static_cast<int>(sizeof(T));
+  static constexpr int kRedBytes = kSubs * kDecGroup * HD * 4;
+  static constexpr int kBig =
+      kStageBytes > kRedBytes ? kStageBytes : kRedBytes;
+  // q (group x HD), p (tile x group), warp maxima and sums, m
+  static constexpr int kBytes =
+      kBig + 4 * (kDecGroup * HD + kDecTile * kDecGroup +
+                  2 * kDecWarps * kDecGroup + kDecGroup);
+  static_assert(HD % kVec == 0 && kSubs >= 1, "head dim");
+};
+
+// 16 bytes of shared memory as floats
+__device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&f)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int d = 0; d < HD; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kp + d);
-      s[0] = fmaf(q[d], kv.x, s[0]);
-      s[1] = fmaf(q[d + 1], kv.y, s[1]);
-      s[2] = fmaf(q[d + 2], kv.z, s[2]);
-      s[3] = fmaf(q[d + 3], kv.w, s[3]);
-    }
-  } else {
-#pragma unroll
-    for (int d = 0; d < HD; d += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kp + d);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(k2[i]);
-        s[i] = fmaf(q[d + 2 * i], f.x, s[i]);
-        s[i] = fmaf(q[d + 2 * i + 1], f.y, s[i]);
-      }
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
-  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+template <int N>
+__device__ __forceinline__ void load_q(const float* p, float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + i);
+    f[i] = v.x;
+    f[i + 1] = v.y;
+    f[i + 2] = v.z;
+    f[i + 3] = v.w;
+  }
+}
+
+// Slots r0 .. r0 + 63 of k and v into a stage; slots >= r1 zero-filled.
+template <typename T, int HD>
+__device__ __forceinline__ void decode_stage(T* ks, T* vs,
+                                             const T* __restrict__ kb,
+                                             const T* __restrict__ vb,
+                                             long long kss, long long vss,
+                                             int r0, int r1, int tid) {
+  using S = DecodeShape<T, HD>;
+  for (int c = tid; c < kDecTile * S::kSlices; c += kDecThreads) {
+    const int j = c / S::kSlices, e = (c % S::kSlices) * S::kVec;
+    const bool ok = r0 + j < r1;
+    const long long r = ok ? r0 + j : r0;
+    tc::cp_async16(ks + j * S::kPitch + e, kb + r * kss + e, ok);
+    tc::cp_async16(vs + j * S::kPitch + e, vb + r * vss + e, ok);
+  }
+}
+
+// Within a warp whose lanes hold x[0..3] of 4 heads, the max (kMax) or
+// sum over the 32 lanes of each head, by a transposed butterfly (each
+// step hands half of the values still held to the partner lane): after
+// it, lane 8 i holds head i, returned in ``head`` = lane / 8.
+template <bool kMax>
+__device__ __forceinline__ float warp_join4(const float (&x)[4], int lane,
+                                            int& head) {
+  const auto op = [](float a, float b) { return kMax ? fmaxf(a, b) : a + b; };
+  const bool hi = lane & 16, hi2 = lane & 8;
+  const float a0 = op(hi ? x[2] : x[0],
+                      __shfl_xor_sync(0xffffffffu, hi ? x[0] : x[2], 16));
+  const float a1 = op(hi ? x[3] : x[1],
+                      __shfl_xor_sync(0xffffffffu, hi ? x[1] : x[3], 16));
+  float y = op(hi2 ? a1 : a0,
+               __shfl_xor_sync(0xffffffffu, hi2 ? a0 : a1, 8));
+  y = op(y, __shfl_xor_sync(0xffffffffu, y, 4));
+  y = op(y, __shfl_xor_sync(0xffffffffu, y, 2));
+  y = op(y, __shfl_xor_sync(0xffffffffu, y, 1));
+  head = (hi ? 2 : 0) + (hi2 ? 1 : 0);
+  return y;
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kDecodeThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int L, int H,
-                    int KV, long long qsb, long long qsh, Strides ks_,
-                    Strides vs_, long long osb, long long osh, int pos,
-                    int window, float scale) {
-  constexpr int kD = (HD + 31) / 32;  // output dims per lane
-  __shared__ float p_s[kDecodeWarps][32];
-  __shared__ float m_s[kDecodeWarps], l_s[kDecodeWarps];
-  __shared__ float acc_s[kDecodeWarps][HD];
+__global__ void __launch_bounds__(kDecThreads)
+flash_decode_kernel(DecodeArgs a) {
+  using S = DecodeShape<T, HD>;
+  constexpr int V = S::kVec;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  T* stages = reinterpret_cast<T*>(dsmem);
+  float* red = reinterpret_cast<float*>(dsmem);  // after the last tile
+  float* q_s = reinterpret_cast<float*>(dsmem + S::kBig);  // [group][HD]
+  float* p_s = q_s + kDecGroup * HD;             // [tile][group]
+  float* wmax = p_s + kDecTile * kDecGroup;      // [warp][group]
+  float* wsum = wmax + kDecWarps * kDecGroup;    // [warp][group]
+  float* m_s = wsum + kDecWarps * kDecGroup;     // [group]
 
-  const int b = blockIdx.y;
-  const int h = blockIdx.x;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale2 = scale * kLog2e, neg2 = kNeg * kLog2e;
-  const int slot = pos % L;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int c = blockIdx.x;
+  const int sub = blockIdx.y % a.ng;
+  const int bk = blockIdx.y / a.ng;
+  const int kvh = bk % a.KV, b = bk / a.KV;
+  const int h0 = kvh * a.G + sub * a.gs;
+  const int gn = min(a.gs, a.G - sub * a.gs);  // heads of this block
+  const int r0 = c * a.chunk;
+  const int r1 = min(a.L, r0 + a.chunk);
+  const int n_tiles = (r1 - r0 + kDecTile - 1) / kDecTile;
 
-  float qf[HD];
-  {
-    const T* qp = q + b * qsb + h * qsh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + kvh * a.ks.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + kvh * a.vs.h;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qf[d] = tc::to_float(qp[d]);
-  }
-  const T* kb = k + b * ks_.b + kvh * ks_.h;
-  const T* vb = v + b * vs_.b + kvh * vs_.h;
-
-  float m = -INFINITY, l = 0.f, acc[kD];
-#pragma unroll
-  for (int i = 0; i < kD; ++i) acc[i] = 0.f;
-
-  for (int j0 = warp * 32; j0 < L; j0 += kDecodeWarps * 32) {
-    const int j = j0 + lane;
-    float s = -INFINITY;  // keys past L never enter the sum
-    if (j < L) {
-      const int back = ((slot - j) % L + L) % L;
-      const bool ok = back <= pos && (window <= 0 || back < window);
-      s = row_dot<T, HD>(kb + static_cast<long long>(j) * ks_.s, qf) *
-              scale2 +
-          (ok ? 0.f : neg2);
+  for (int s = 0; s < kDecStages - 1; ++s) {
+    if (s < n_tiles) {
+      T* st = stages + s * S::kStage;
+      decode_stage<T, HD>(st, st + kDecTile * S::kPitch, kb, vb, a.ks.s,
+                          a.vs.s, r0 + s * kDecTile, r1, tid);
     }
-    float tmax = s;
+    tc::cp_async_commit();
+  }
+  {  // the group's q rows times scale log2 e; rows past gn are zeros
+    const T* qb = static_cast<const T*>(a.q) + b * a.qsb;
+    for (int i = tid; i < kDecGroup * HD; i += kDecThreads) {
+      const int g = i / HD, d = i % HD;
+      q_s[i] = g < gn ? tc::to_float(qb[(h0 + g) * a.qsh + d]) * a.scale2
+                      : 0.f;
+    }
+  }
+
+  // scores: slot j of each tile against heads 4 part .. 4 part + 3
+  const int j = tid % kDecTile;
+  const int part = tid / kDecTile;            // warps 0-1: 0, warps 2-3: 1
+  const bool qk_on = part * kDecHalf < gn;    // warp-uniform
+  // P v: 16-byte slice of hd and slot subset
+  const int slice = tid % S::kSlices;
+  const int ksub = tid / S::kSlices;
+  const bool pv_on = ksub < S::kSubs;
+  const float neg2 = kNeg * kLog2e;
+  const int pslot = a.pos % a.ring_len;
+
+  float m[kDecGroup], l[kDecHalf], acc[kDecGroup][V];
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-    // key j0 < L is in the tile, so m_new is finite and the first tile's
-    // alpha is exp(-inf) = 0
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = exp2f(m - m_new);
-    const float p = exp2f(s - m_new);
-    float psum = p;
+  for (int g = 0; g < kDecGroup; ++g) {
+    m[g] = -INFINITY;
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    l = l * alpha + psum;
-    m = m_new;
+    for (int e = 0; e < V; ++e) acc[g][e] = 0.f;
+  }
 #pragma unroll
-    for (int i = 0; i < kD; ++i) acc[i] *= alpha;
-    p_s[warp][lane] = p;
-    __syncwarp();
-    const int n = min(32, L - j0);
-#pragma unroll 4
-    for (int jj = 0; jj < n; ++jj) {
-      const float pj = p_s[warp][jj];
-      const T* vp = vb + static_cast<long long>(j0 + jj) * vs_.s;
+  for (int i = 0; i < kDecHalf; ++i) l[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    tc::cp_async_wait<kDecStages - 2>();  // tile t has landed
+    __syncthreads();  // ... for every thread; tile t - 1's buffer is free
+    {
+      const int tn = t + kDecStages - 1;
+      if (tn < n_tiles) {
+        T* st = stages + (tn % kDecStages) * S::kStage;
+        decode_stage<T, HD>(st, st + kDecTile * S::kPitch, kb, vb, a.ks.s,
+                            a.vs.s, r0 + tn * kDecTile, r1, tid);
+      }
+      tc::cp_async_commit();
+    }
+    const T* ks = stages + (t % kDecStages) * S::kStage;
+    const T* vs = ks + kDecTile * S::kPitch;
+
+    // ---- scores of slot j, base 2, with the ring's bias ----
+    float s[kDecHalf][2];
 #pragma unroll
-      for (int i = 0; i < kD; ++i) {
-        const int d = lane + 32 * i;
-        if (HD % 32 == 0 || d < HD)
-          acc[i] = fmaf(pj, tc::to_float(vp[d]), acc[i]);
+    for (int i = 0; i < kDecHalf; ++i) s[i][0] = s[i][1] = 0.f;
+    if (qk_on) {
+      const T* kp = ks + j * S::kPitch;
+      const float* qp = q_s + part * kDecHalf * HD;
+#pragma unroll
+      for (int d = 0; d < HD; d += V) {
+        float kf[V];
+        load_vec(kp + d, kf);
+#pragma unroll
+        for (int i = 0; i < kDecHalf; ++i) {
+          float qf[V];
+          load_q(qp + i * HD + d, qf);
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            s[i][e & 1] = fmaf(qf[e], kf[e], s[i][e & 1]);
+        }
       }
     }
-    __syncwarp();  // p_s is rewritten by the next tile
+    const int row = r0 + t * kDecTile + j;  // index in the given slots
+    float sv[kDecHalf];
+    {
+      int back = pslot - (a.slot0 + row);   // slot0 + row < ring_len
+      if (back < 0) back += a.ring_len;
+      const bool ok = back <= a.pos && (a.window <= 0 || back < a.window);
+#pragma unroll
+      for (int i = 0; i < kDecHalf; ++i)  // slots past the chunk never count
+        sv[i] = row < r1 ? (s[i][0] + s[i][1]) + (ok ? 0.f : neg2)
+                         : -INFINITY;
+    }
+    {
+      int head;
+      const float x = warp_join4<true>(sv, lane, head);
+      if ((lane & 7) == 0) wmax[warp * kDecGroup + part * kDecHalf + head] = x;
+    }
+    __syncthreads();
+
+    // ---- the online softmax: every thread updates every head's max ----
+    float alpha[kDecGroup];
+#pragma unroll
+    for (int g = 0; g < kDecGroup; ++g) {
+      const int w0 = (g / kDecHalf) * 2;  // the two warps of g's part
+      // each tile holds a slot < r1, so the max is finite and the first
+      // tile's alpha is exp2(-inf) = 0
+      const float m_new = fmaxf(m[g], fmaxf(wmax[w0 * kDecGroup + g],
+                                            wmax[(w0 + 1) * kDecGroup + g]));
+      alpha[g] = exp2f(m[g] - m_new);
+      m[g] = m_new;
+    }
+    {
+      float p[kDecHalf];
+#pragma unroll
+      for (int i = 0; i < kDecHalf; ++i) {
+        const float mi = part ? m[kDecHalf + i] : m[i];
+        const float ai = part ? alpha[kDecHalf + i] : alpha[i];
+        p[i] = exp2f(sv[i] - mi);
+        l[i] = fmaf(l[i], ai, p[i]);
+      }
+      *reinterpret_cast<float4*>(p_s + j * kDecGroup + part * kDecHalf) =
+          make_float4(p[0], p[1], p[2], p[3]);
+    }
+    __syncthreads();
+
+    // ---- acc = alpha acc + P v over the tile (slots past the chunk
+    // have p = 0 and zero-filled v) ----
+    if (pv_on) {
+#pragma unroll
+      for (int g = 0; g < kDecGroup; ++g)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[g][e] *= alpha[g];
+#pragma unroll 2
+      for (int jj = ksub; jj < kDecTile; jj += S::kSubs) {
+        float vf[V];
+        load_vec(vs + jj * S::kPitch + slice * V, vf);
+        float pj[kDecGroup];
+        load_q(p_s + jj * kDecGroup, pj);
+#pragma unroll
+        for (int g = 0; g < kDecGroup; ++g) {
+          if (g < gn) {
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc[g][e] = fmaf(pj[g], vf[e], acc[g][e]);
+          }
+        }
+      }
+    }
   }
 
-  // join the warps: a warp that had no tile holds m = -inf, l = 0, acc = 0
-  if (lane == 0) {
-    m_s[warp] = m;
-    l_s[warp] = l;
+  tc::cp_async_wait<0>();
+  __syncthreads();  // the stages are free: red reuses them
+  {
+    int head;
+    const float x = warp_join4<false>(l, lane, head);
+    if ((lane & 7) == 0) wsum[warp * kDecGroup + part * kDecHalf + head] = x;
   }
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < kD; ++i) {
-    const int d = lane + 32 * i;
-    if (HD % 32 == 0 || d < HD) acc_s[warp][d] = acc[i];
+    for (int g = 0; g < kDecGroup; ++g) m_s[g] = m[g];
+  }
+  if (pv_on) {
+#pragma unroll
+    for (int g = 0; g < kDecGroup; ++g) {
+      if (g < gn) {
+        float* rp = red + (ksub * kDecGroup + g) * HD + slice * V;
+#pragma unroll
+        for (int e = 0; e < V; e += 4)
+          *reinterpret_cast<float4*>(rp + e) =
+              make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
+                          acc[g][e + 3]);
+      }
+    }
   }
   __syncthreads();
-  const int d = threadIdx.x;
-  if (d < HD) {
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) M = fmaxf(M, m_s[w]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) {
-      const float f = exp2f(m_s[w] - M);
-      num = fmaf(f, acc_s[w][d], num);
-      den = fmaf(f, l_s[w], den);
+  for (int i = tid; i < gn * HD; i += kDecThreads) {
+    const int g = i / HD, d = i % HD;
+    float num = 0.f;
+#pragma unroll 4
+    for (int u = 0; u < S::kSubs; ++u)
+      num += red[(u * kDecGroup + g) * HD + d];
+    const int w0 = (g / kDecHalf) * 2;
+    const float den =
+        wsum[w0 * kDecGroup + g] + wsum[(w0 + 1) * kDecGroup + g];
+    const int h = h0 + g;
+    if (a.o) {
+      static_cast<T*>(a.o)[b * a.osb + h * a.osh + d] =
+          tc::from_float<T>(num / fmaxf(den, 1e-30f));
+    } else {
+      const long long pi = (static_cast<long long>(b) * a.H + h) * a.C + c;
+      a.pacc[pi * HD + d] = num;
+      if (d == 0) {
+        a.pm[pi] = m_s[g] * kLn2;
+        a.pl[pi] = den;
+      }
     }
-    o[b * osb + h * osh + d] = tc::from_float<T>(num / fmaxf(den, 1e-30f));
   }
 }
 
+// Pass 2: the C chunks' partials of one (b, h) joined; into o (normalised,
+// in T) or, with o null, into (jm, jl, jacc) unnormalised.  The block's
+// threads take the chunks apart: the max by a block reduction, then
+// thread (u, d) sums dim d over chunks u, u + n, ... (n = threads / hd),
+// and the n subsets join in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kJoinThreads)
+flash_decode_join(DecodeArgs a, int hd, float* __restrict__ jm,
+                  float* __restrict__ jl, float* __restrict__ jacc) {
+  __shared__ float num_s[kJoinThreads], den_s[kJoinThreads];
+  __shared__ float max_s[kJoinThreads / 32];
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  const float* pm = a.pm + bh * a.C;
+  const float* pl = a.pl + bh * a.C;
+  const float* pacc = a.pacc + bh * a.C * hd;
+  float x = -INFINITY;
+  for (int c = tid; c < a.C; c += kJoinThreads) x = fmaxf(x, pm[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  if (tid % 32 == 0) max_s[tid / 32] = x;
+  __syncthreads();
+  float M = max_s[0];
+#pragma unroll
+  for (int w = 1; w < kJoinThreads / 32; ++w) M = fmaxf(M, max_s[w]);
+  const int n = kJoinThreads / hd;  // hd <= 128: at least 2 subsets
+  const int u = tid / hd, d = tid % hd;
+  float num = 0.f, den = 0.f;
+  if (u < n) {
+#pragma unroll 4
+    for (int c = u; c < a.C; c += n) {
+      const float f = expf(pm[c] - M);  // 0 for an all-masked chunk
+      num = fmaf(f, pacc[static_cast<long long>(c) * hd + d], num);
+      den = fmaf(f, pl[c], den);
+    }
+  }
+  num_s[tid] = num;
+  den_s[tid] = den;
+  __syncthreads();
+  if (tid < hd) {
+    for (int v = 1; v < n; ++v) {
+      num += num_s[v * hd + tid];
+      den += den_s[v * hd + tid];
+    }
+    if (a.o) {
+      static_cast<T*>(a.o)[b * a.osb + h * a.osh + tid] =
+          tc::from_float<T>(num / fmaxf(den, 1e-30f));
+    } else {
+      jacc[bh * hd + tid] = num;
+      if (tid == 0) {
+        jm[bh] = M;
+        jl[bh] = den;
+      }
+    }
+  }
+}
+
+// Pass 1 into o (C = 1) or the workspace, then pass 2 where C > 1.  With
+// partial set, the result is (jm, jl, jacc): pass 1 writes it itself when
+// C = 1.  ws holds 2 B H C + B H C hd floats when C > 1.
 template <typename T, int HD>
-int launch_decode_hd(const void* q, const void* k, const void* v, void* o,
-                     int B, int L, int H, int KV, long long qsb,
-                     long long qsh, Strides ks, Strides vs, long long osb,
-                     long long osh, int pos, int window, float scale,
-                     cudaStream_t stream) {
-  const dim3 grid(H, B);
-  flash_decode_kernel<T, HD><<<grid, kDecodeThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), L, H, KV, qsb, qsh, ks,
-      vs, osb, osh, pos, window, scale);
+int launch_decode_hd(DecodeArgs a, int B, bool partial, float* jm,
+                     float* jl, float* jacc, float* ws, cudaStream_t st) {
+  using S = DecodeShape<T, HD>;
+  if (S::kBytes > 48 * 1024) {  // above 48 KB only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  DecodeArgs p = a;
+  if (a.C == 1) {
+    if (partial) {
+      p.o = nullptr;
+      p.pm = jm;
+      p.pl = jl;
+      p.pacc = jacc;
+    }
+  } else {
+    const long long n = static_cast<long long>(B) * a.H * a.C;
+    p.o = nullptr;
+    p.pm = ws;
+    p.pl = ws + n;
+    p.pacc = ws + 2 * n;
+  }
+  const dim3 grid(a.C, B * a.KV * a.ng);
+  flash_decode_kernel<T, HD><<<grid, kDecThreads, S::kBytes, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.C == 1) return static_cast<int>(err);
+  p.o = partial ? nullptr : a.o;
+  flash_decode_join<T><<<dim3(a.H, B), kJoinThreads, 0, st>>>(p, HD, jm, jl,
+                                                             jacc);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_decode(const void* q, const void* k, const void* v, void* o,
-                  int B, int L, int H, int KV, int hd, long long qsb,
-                  long long qsh, long long ksb, long long kss, long long ksh,
-                  long long vsb, long long vss, long long vsh, long long osb,
-                  long long osh, int pos, int window, float scale,
-                  void* stream) {
+                  float* jm, float* jl, float* jacc, float* ws, int B,
+                  int L, int H, int KV, int hd, long long qsb, long long qsh,
+                  long long ksb, long long kss, long long ksh, long long vsb,
+                  long long vss, long long vsh, long long osb, long long osh,
+                  int pos, int window, int ring_len, int slot0, int chunk,
+                  float scale, void* stream) {
   if (B == 0 || H == 0) return 0;
-  if (L <= 0 || pos < 0 || KV <= 0 || H % KV != 0 || B > 65535)
+  if (L <= 0 || pos < 0 || KV <= 0 || H % KV != 0 || chunk <= 0 ||
+      slot0 < 0 || ring_len < L || slot0 > ring_len - L)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
+  const bool partial = o == nullptr;
+  const int C = (L + chunk - 1) / chunk;
+  if ((C > 1 && ws == nullptr) || (partial && !(jm && jl && jacc)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.pm = a.pl = a.pacc = nullptr;
+  a.L = L;
+  a.H = H;
+  a.KV = KV;
+  a.G = H / KV;
+  a.ng = (a.G + kDecGroup - 1) / kDecGroup;
+  a.gs = (a.G + a.ng - 1) / a.ng;
+  a.qsb = qsb;
+  a.qsh = qsh;
+  a.ks = Strides{ksb, kss, ksh};
+  a.vs = Strides{vsb, vss, vsh};
+  a.osb = osb;
+  a.osh = osh;
+  a.pos = pos;
+  a.window = window;
+  a.ring_len = ring_len;
+  a.slot0 = slot0;
+  a.chunk = chunk;
+  a.C = C;
+  a.scale2 = scale * kLog2e;
+  if (static_cast<long long>(B) * KV * a.ng > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-#define DECODE_HD(N)                                                        \
-  case N:                                                                   \
-    return launch_decode_hd<T, N>(q, k, v, o, B, L, H, KV, qsb, qsh, ks, vs, \
-                                  osb, osh, pos, window, scale, st);
+#define DECODE_HD(N) \
+  case N:            \
+    return launch_decode_hd<T, N>(a, B, partial, jm, jl, jacc, ws, st);
     DECODE_HD(16)
     DECODE_HD(32)
     DECODE_HD(64)
@@ -572,19 +913,45 @@ FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
 // q, o: (B, 1, H, hd) with strides (b, h); k, v: (B, L, KV, hd) with
 // strides (b, s, h); the last axis contiguous, k and v 16-byte aligned with
 // strides that keep every row so (the wrapper checks).  pos >= 0 is the
-// query's position, window 0 for none.  Returns the launch's CUDA error
-// code (0 on success).
+// query's position, window 0 for none; chunk the slots of a pass-1 block
+// (ops.py: decode_splits); ws an f32 workspace of 2 B H C + B H C hd
+// floats, C = ceil(L / chunk), unused (may be null) when C = 1.  Returns
+// the first launch error's CUDA code (0 on success).
 #define DECODE_ENTRY(NAME, T)                                                \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
-                      int B, int L, int H, int KV, int hd, long long qsb,    \
-                      long long qsh, long long ksb, long long kss,           \
-                      long long ksh, long long vsb, long long vss,           \
-                      long long vsh, long long osb, long long osh, int pos,  \
-                      int window, float scale, void* stream) {               \
-    return launch_decode<T>(q, k, v, o, B, L, H, KV, hd, qsb, qsh, ksb, kss, \
-                            ksh, vsb, vss, vsh, osb, osh, pos, window,       \
-                            scale, stream);                                  \
+                      float* ws, int B, int L, int H, int KV, int hd,        \
+                      long long qsb, long long qsh, long long ksb,           \
+                      long long kss, long long ksh, long long vsb,           \
+                      long long vss, long long vsh, long long osb,           \
+                      long long osh, int pos, int window, int chunk,         \
+                      float scale, void* stream) {                           \
+    if (o == nullptr) return static_cast<int>(cudaErrorInvalidValue);        \
+    return launch_decode<T>(q, k, v, o, nullptr, nullptr, nullptr, ws, B, L, \
+                            H, KV, hd, qsb, qsh, ksb, kss, ksh, vsb, vss,    \
+                            vsh, osb, osh, pos, window, L, 0, chunk, scale,  \
+                            stream);                                         \
   }
 
 DECODE_ENTRY(flash_decode_f32, float)
 DECODE_ENTRY(flash_decode_bf16, __nv_bfloat16)
+
+// The partial form: k, v hold slots slot0 .. slot0 + L - 1 of a ring of
+// ring_len slots; m, l: (B, 1, H) and acc: (B, 1, H, hd), f32, contiguous,
+// the softmax's max (natural-log units), sum and weighted values over
+// those slots, unnormalised.
+#define PARTIALS_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const void* q, const void* k, const void* v, float* m, \
+                      float* l, float* acc, float* ws, int B, int L, int H,  \
+                      int KV, int hd, long long qsb, long long qsh,          \
+                      long long ksb, long long kss, long long ksh,           \
+                      long long vsb, long long vss, long long vsh, int pos,  \
+                      int window, int ring_len, int slot0, int chunk,        \
+                      float scale, void* stream) {                           \
+    return launch_decode<T>(q, k, v, nullptr, m, l, acc, ws, B, L, H, KV,    \
+                            hd, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh, 0,   \
+                            0, pos, window, ring_len, slot0, chunk, scale,   \
+                            stream);                                         \
+  }
+
+PARTIALS_ENTRY(flash_decode_partials_f32, float)
+PARTIALS_ENTRY(flash_decode_partials_bf16, __nv_bfloat16)

@@ -40,7 +40,8 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _DNDM = [_P] * 6 + [_LL, _I, _I, _I, _F, _P]
 _FLASH = [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_I, _I, _F, _P]
-_DECODE = [_P] * 4 + [_I] * 5 + [_LL] * 10 + [_I, _I, _F, _P]
+_DECODE = [_P] * 5 + [_I] * 5 + [_LL] * 10 + [_I] * 3 + [_F, _P]
+_PARTIALS = [_P] * 7 + [_I] * 5 + [_LL] * 8 + [_I] * 5 + [_F, _P]
 _SCORES = [_P] * 5 + [_LL, _I, _F, _P]
 _SSD = [_P] * 9 + [_I] * 6 + [_LL] * 13 + [_P]
 ARGTYPES = {
@@ -52,10 +53,14 @@ ARGTYPES = {
     # stream
     "flash_attention_f32": _FLASH,
     "flash_attention_bf16": _FLASH,
-    # q, k, v, o, B, L, H, KV, hd, 10 strides (q and o: b, h; k and v: b,
-    # s, h), pos, window, scale, stream
+    # q, k, v, o, workspace, B, L, H, KV, hd, 10 strides (q and o: b, h;
+    # k and v: b, s, h), pos, window, chunk, scale, stream
     "flash_decode_f32": _DECODE,
     "flash_decode_bf16": _DECODE,
+    # q, k, v, m, l, acc, workspace, B, L, H, KV, hd, 8 strides (q: b, h;
+    # k and v: b, s, h), pos, window, ring_len, slot0, chunk, scale, stream
+    "flash_decode_partials_f32": _PARTIALS,
+    "flash_decode_partials_bf16": _PARTIALS,
     # logits, gumbel, mask, tok, score, rows, K, temperature, stream
     "decode_scores_f32": _SCORES,
     "decode_scores_bf16": _SCORES,

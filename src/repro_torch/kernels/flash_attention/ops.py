@@ -1,7 +1,9 @@
 """Wrappers of the flash-attention kernels
 (``repro_torch/csrc/flash_attention.cu``): ``flash_attention``
-(self-attention over one length S) and ``flash_decode`` (one query row
-per head over a ring-buffer KV cache, the decode form).
+(self-attention over one length S), ``flash_decode`` (one query row per
+head over a ring-buffer KV cache, the decode form) and
+``flash_decode_partials`` (the decode form's softmax statistics over a
+share of a ring's slots, for ranks that shard them).
 
 Takes the model's (B, S, heads, hd) layout through strides (no
 transposes) and un-repeated kv heads (grouped-query attention reads kv
@@ -12,8 +14,13 @@ stages k and v with 16-byte copies, so on the card their rows must start
 on 16-byte boundaries; a view that breaks this raises (there is no other
 route).  Each raises where autograd would need a gradient through it
 (``build.no_backward``): training attends through ``attn_impl``
-"einsum" or "blocked".  ``flash_attention.launches`` and
-``flash_decode.launches`` count kernel launches.
+"einsum" or "blocked".  ``flash_attention.launches``,
+``flash_decode.launches`` and ``flash_decode_partials.launches`` count
+calls that launched the kernel (the decode form's two passes count once).
+
+The decode kernel splits the cache's slots into chunks, one pass-1 block
+per (chunk, b, kv head) and a second pass that joins the chunks;
+:func:`decode_chunk` chooses the split.
 """
 from __future__ import annotations
 
@@ -24,6 +31,52 @@ from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# The decode kernel's pass-1 block (csrc/flash_attention.cu: kDecTile,
+# kDecStages, 32 x kDecWarps, kDecGroup): 64-slot tiles of k and v three
+# deep in shared memory, 128 threads, up to 8 query heads; a chunk's
+# least length; the H100's SMs and the shared memory an SM gives its
+# blocks (228 KB, 1 KB of it reserved per block).  ptxas gives the f32
+# instances 128-138 registers a thread and the bf16 ones 162-168, so at
+# most 4 and 3 blocks fit an SM's 65,536 registers.
+DECODE_TILE = 64
+DECODE_STAGES = 3
+DECODE_THREADS = 128
+DECODE_GROUP = 8
+DECODE_MIN_CHUNK = 256
+SMS = 132
+SM_SHARED_BYTES = 233472
+
+
+def decode_blocks_per_sm(hd: int, itemsize: int) -> int:
+    """Pass-1 blocks resident on one SM: the kernel's shared memory
+    (DecodeShape in the source: the stages or, if larger, the P v join;
+    q, p and the joins' scratch) against the SM's, capped by registers."""
+    vec, g = 16 // itemsize, DECODE_GROUP
+    stages = DECODE_STAGES * 2 * DECODE_TILE * (hd + vec) * itemsize
+    join = DECODE_THREADS // (hd // vec) * g * hd * 4
+    scratch = g * hd + DECODE_TILE * g + 2 * (DECODE_THREADS // 32) * g + g
+    smem = max(stages, join) + 4 * scratch
+    return max(1, min(4 if itemsize == 4 else 3,
+                      SM_SHARED_BYTES // (smem + 1024)))
+
+
+def decode_chunk(B: int, KV: int, L: int, hd: int, itemsize: int) -> int:
+    """Slots per pass-1 block of the decode kernel over a cache of L
+    slots: the B x KV (batch row, kv head) pairs' chunks fill the card's
+    resident blocks (``decode_blocks_per_sm`` x SMS) once, in one wave,
+    with each chunk a whole number of DECODE_TILE tiles and at least
+    DECODE_MIN_CHUNK slots; the whole cache (one block per pair, one
+    pass) where that is one chunk."""
+    tiles = -(-L // DECODE_TILE)
+    want = max(1, SMS * decode_blocks_per_sm(hd, itemsize) // max(1, B * KV))
+    per = max(-(-tiles // want), DECODE_MIN_CHUNK // DECODE_TILE)
+    return L if per >= tiles else per * DECODE_TILE
+
+
+def decode_splits(B: int, KV: int, L: int, hd: int, itemsize: int) -> int:
+    """The number of chunks :func:`decode_chunk` cuts L slots into (at
+    head dim ``hd``, ``itemsize`` bytes an element)."""
+    return -(-L // decode_chunk(B, KV, L, hd, itemsize))
 
 
 def _check(q, k, v) -> None:
@@ -104,13 +157,46 @@ def _check_decode(q, k, v, pos: int, window: int) -> None:
         raise ValueError(f"window must be >= 0; got {window}")
 
 
+def _check_slots(L: int, ring_len: int, slot0: int) -> None:
+    for name, x in (("ring_len", ring_len), ("slot0", slot0)):
+        if isinstance(x, bool) or not isinstance(x, int):
+            raise ValueError(f"{name} must be an int; got {x!r}")
+    if slot0 < 0 or ring_len < slot0 + L:
+        raise ValueError(f"slots {slot0} .. {slot0 + L - 1} do not lie in a "
+                         f"ring of {ring_len}")
+
+
+def _decode_launch(name: str, fn, q, k, v, outs, pos: int, window: int,
+                   slots: tuple = ()) -> None:
+    """Launch the decode kernel's C entry point ``fn`` on CUDA tensors:
+    ``outs`` the output pointers, ``slots`` (ring_len, slot0) for the
+    partial form; allocates the chunks' workspace where there are several
+    chunks."""
+    B, _, H, hd = q.shape
+    L, KV = k.shape[1], k.shape[2]
+    chunk = decode_chunk(B, KV, L, hd, q.element_size())
+    n = -(-L // chunk)
+    ws = (torch.empty(B * H * n * (hd + 2), dtype=torch.float32,
+                      device=q.device) if n > 1 else None)
+    strides = ([q.stride(0), q.stride(2)]
+               + [st for a in (k, v) for st in a.stride()[:3]])
+    if not slots:                       # the output's (b, h) strides
+        strides += [outs[0].stride(0), outs[0].stride(2)]
+    build.launch(name, fn, q.get_device(), q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), *(o.data_ptr() for o in outs),
+                 None if ws is None else ws.data_ptr(), B, L, H, KV, hd,
+                 *strides, pos, int(window), *slots, chunk, 1.0 / hd ** 0.5)
+
+
 def flash_decode(q, k_cache, v_cache, *, pos: int, window: int = 0):
     """q: (B,1,H,hd), the query of position ``pos``; k_cache, v_cache:
     (B,L,KV,hd), a ring buffer (slot i holds position pos - ((pos mod L -
     i) mod L)).  Returns (B,1,H,hd) in q's dtype: softmax(q k^T / sqrt(hd)
     + bias) v, bias additive -1e9 where a slot holds a negative position
     or one ``window`` or more behind ``pos`` (``ref.ring_bias``; the
-    kernel computes it from (pos, L, window))."""
+    kernel computes it from (pos, L, window)).  On the card a cache of
+    several chunks (:func:`decode_chunk`) takes the kernel's two passes,
+    a short one pass; either way ``flash_decode.launches`` counts one."""
     _check_decode(q, k_cache, v_cache, pos, window)
     build.no_backward("flash_decode", q, k_cache, v_cache)
     if q.device.type == "cpu":
@@ -122,17 +208,49 @@ def flash_decode(q, k_cache, v_cache, *, pos: int, window: int = 0):
     lib = build.library().lib
     fn = (lib.flash_decode_f32 if q.dtype == torch.float32
           else lib.flash_decode_bf16)
-    B, _, H, hd = q.shape
-    L, KV = k_cache.shape[1], k_cache.shape[2]
-    out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
-    strides = ([q.stride(0), q.stride(2)]
-               + [st for a in (k_cache, v_cache) for st in a.stride()[:3]]
-               + [out.stride(0), out.stride(2)])
-    build.launch("flash_decode", fn, q.get_device(), q.data_ptr(),
-                 k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), B,
-                 L, H, KV, hd, *strides, pos, int(window), 1.0 / hd ** 0.5)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _decode_launch("flash_decode", fn, q, k_cache, v_cache, (out,), pos,
+                   window)
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_partials(q, k, v, *, pos: int, window: int, ring_len: int,
+                          slot0: int):
+    """The softmax statistics of ``flash_decode`` over a share of a ring's
+    slots: k, v (B,L,KV,hd) hold slots ``slot0 .. slot0 + L - 1`` of a
+    ring of ``ring_len`` slots (L and 0: the whole ring), q (B,1,H,hd)
+    is the query of position ``pos``.  Returns (m, l, acc) in f32 and
+    natural-log units: m = max s and l = sum exp(s - m), both (B,1,H),
+    acc = sum exp(s - m) v, (B,1,H,hd), with s = q k^T / sqrt(hd) + the
+    ring's bias over these slots (``ref.decode_partials``).  Ranks that
+    shard the slots join theirs into the softmax (``ref.combine_partials``,
+    or all-reduces in ``launch/spmd.py``).  On the card the kernel's pass
+    1, and its pass 2 where the share is several chunks;
+    ``flash_decode_partials.launches`` counts one per call."""
+    _check_decode(q, k, v, pos, window)
+    _check_slots(k.shape[1], ring_len, slot0)
+    build.no_backward("flash_decode_partials", q, k, v)
+    if q.device.type == "cpu":
+        return ref.decode_partials(q, k, v, pos, window, ring_len, slot0)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_partials runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check_aligned(k, v)
+    lib = build.library().lib
+    fn = (lib.flash_decode_partials_f32 if q.dtype == torch.float32
+          else lib.flash_decode_partials_bf16)
+    B, _, H, hd = q.shape
+    m, l = (torch.empty((B, 1, H), dtype=torch.float32, device=q.device)
+            for _ in range(2))
+    acc = torch.empty((B, 1, H, hd), dtype=torch.float32, device=q.device)
+    _decode_launch("flash_decode_partials", fn, q, k, v, (m, l, acc), pos,
+                   window, (ring_len, slot0))
+    flash_decode_partials.launches += 1
+    return m, l, acc
+
+
+flash_decode_partials.launches = 0

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the flash-attention kernels.
 
 The CPU paths of :func:`repro_torch.kernels.flash_attention.ops.
-flash_attention` and ``flash_decode``, and what ``chip_smoke.py`` holds
-the CUDA kernels against on the card.  Same layouts as the kernels: q
-(B,S,H,hd), k and v (B,S,KV,hd) with H a multiple of KV; for the decode
-form q (B,1,H,hd) over a ring-buffer cache k, v (B,L,KV,hd).
+flash_attention`, ``flash_decode`` and ``flash_decode_partials``, and
+what ``chip_smoke.py`` holds the CUDA kernels against on the card.  Same
+layouts as the kernels: q (B,S,H,hd), k and v (B,S,KV,hd) with H a
+multiple of KV; for the decode form q (B,1,H,hd) over a ring-buffer
+cache k, v (B,L,KV,hd), or over a share of its slots (the partials).
 """
 from __future__ import annotations
 
@@ -71,3 +72,35 @@ def decode_attention(q, k_cache, v_cache, pos: int, window: int = 0):
     s = s + ring_bias(pos, k.shape[1], window, q.device)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def decode_partials(q, k, v, pos: int, window: int, ring_len: int,
+                    slot0: int):
+    """The softmax's partial statistics for one query row per head, q
+    (B,1,H,hd), over slots ``slot0 .. slot0 + L - 1`` of a ring of
+    ``ring_len`` slots (L and 0: the whole cache), which k and v
+    (B,L,KV,hd) hold.  With s = q k^T / sqrt(hd) + ring_bias, in f32 and
+    natural-log units: m = max s and l = sum exp(s - m), both (B,1,H),
+    and acc = sum exp(s - m) v, (B,1,H,hd)."""
+    L = k.shape[1]
+    H, hd = q.shape[2], q.shape[3]
+    k = repeat_kv(k, H).float()
+    v = repeat_kv(v, H).float()
+    s = torch.einsum("bqhd,bkhd->bqhk", q.float(), k) / (hd ** 0.5)
+    s = s + ring_bias(pos, ring_len, window, q.device)[slot0:slot0 + L]
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(-1), torch.einsum("bqhk,bkhd->bqhd", p, v)
+
+
+def combine_partials(parts, dtype=torch.float32):
+    """The attention output (B,1,H,hd) in ``dtype`` from the partials
+    ``[(m, l, acc), ...]`` of disjoint sets of slots that together hold
+    the whole ring: M = max m, l = sum exp(m - M) l_i, out = sum exp(m -
+    M) acc_i / max(l, 1e-30).  A set whose slots are all masked has m
+    near -1e9 and adds nothing."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    l = sum(f * li for f, (_, li, _) in zip(w, parts))
+    acc = sum(f[..., None] * a for f, (_, _, a) in zip(w, parts))
+    return (acc / l.clamp(min=1e-30)[..., None]).to(dtype)

@@ -31,10 +31,12 @@ sharded MoE dispatch does (``models/moe.py``):
 the model's own modules keep their one plain path.  Each sharded form
 defers to it where its input is not a DTensor.
 
-The plain routes here (a rank's subset of query rows, a softmax
-completed over slot-sharding ranks) have no kernel: under
-``attn_impl="pallas"`` they run on CPU and fake tensors only (the CPU
-tests, the dry run), and raise on CUDA tensors.
+A softmax completed over slot-sharding ranks takes each rank's partial
+statistics from ``flash_decode_partials`` under ``attn_impl="pallas"``
+(the kernel on CUDA tensors, its plain version on CPU and fake ones).
+A rank's subset of query rows has no kernel (the flash kernel takes no
+row offset): under "pallas" it runs on CPU and fake tensors only (the CPU
+tests, the dry run), and raises on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -45,7 +47,8 @@ from torch.distributed.tensor import DTensor
 from repro_torch.device import AllReduce, is_sharded, local_block
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import mask_bias, repeat_kv
-from repro_torch.kernels.flash_attention.ref import ring_bias
+from repro_torch.kernels.flash_attention.ref import (decode_partials,
+                                                    ring_bias)
 from repro_torch.models.attention import (Attention, _blocked_attn,
                                           _einsum_attn, _inner, _plain)
 from repro_torch.models.blocks import AttnBlock, MixerBlock
@@ -120,30 +123,31 @@ def _local_kv(t, q_placements, mesh):
     return t.redistribute(mesh, pl).to_local(grad_placements=grad)
 
 
-def slot_sharded_decode(q, k, v, bias, groups, cfg):
-    """One query position q (B, 1, H, hd) over this rank's slots of the
-    cache, k and v (B, L_local, KV, hd) with their ``bias``, the softmax
-    completed over the process groups ``groups`` that shard the slots:
-    max, sum and weighted values all-reduced -> (B, 1, H, hd) in q's
-    dtype (refused on the card under "pallas": ``flash_decode`` returns
-    no partial softmax statistics)."""
+def slot_sharded_decode(q, k, v, groups, cfg, *, pos: int, window: int,
+                        slot0: int, ring_len: int):
+    """One query position q (B, 1, H, hd) over this rank's slots of a ring
+    of ``ring_len``, k and v (B, L_local, KV, hd) holding slots ``slot0
+    ..``, the softmax completed over the process groups ``groups`` that
+    shard the slots -> (B, 1, H, hd) in q's dtype.  The rank's (m, l,
+    acc) come from ``flash_decode_partials`` under "pallas" (the kernel
+    on the card) and from its plain version otherwise; then the max is
+    all-reduced, each rank rescales its sums to it, and l and acc are
+    all-reduced."""
     import torch.distributed as dist
-    _no_kernel(q, cfg, "flash_decode returns no partial softmax "
-               "statistics to complete over ranks that shard the slots")
-    k = repeat_kv(k, q.shape[2]).float()
-    v = repeat_kv(v, q.shape[2]).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / (cfg.hd ** 0.5)
-    s = s + bias
-    m = s.amax(-1, keepdim=True)
+    kw = dict(pos=pos, window=window, ring_len=ring_len, slot0=slot0)
+    m, l, acc = (flash_ops.flash_decode_partials(q, k, v, **kw)
+                 if cfg.attn_impl == "pallas"
+                 else decode_partials(q, k, v, **kw))
+    M = m.clone()
     for g in groups:
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
-    p = torch.exp(s - m)
-    den = p.sum(-1, keepdim=True)
-    num = torch.einsum("bhqk,bkhd->bhqd", p, v)
+        dist.all_reduce(M, op=dist.ReduceOp.MAX, group=g)
+    f = torch.exp(m - M)       # 0 on a rank whose slots are all masked
+    l = l * f
+    acc = acc * f.unsqueeze(-1)
     for g in groups:
-        dist.all_reduce(den, group=g)
-        dist.all_reduce(num, group=g)
-    return (num / den).transpose(1, 2).to(q.dtype).contiguous()
+        dist.all_reduce(l, group=g)
+        dist.all_reduce(acc, group=g)
+    return (acc / l.clamp(min=1e-30).unsqueeze(-1)).to(q.dtype)
 
 
 class ShardedAttention(Attention):
@@ -216,15 +220,16 @@ class ShardedAttention(Attention):
             kl[:, slot] = k_new.redistribute(mesh, kept).to_local()[:, 0]
             vl[:, slot] = v_new.redistribute(mesh, kept).to_local()[:, 0]
         ql = q.redistribute(mesh, kept).to_local()
-        bias = ring_bias(pos, L, window, q.device)[off[1]:off[1] + shape[1]]
         groups = [mesh.get_group(i) for i, p in enumerate(cpl)
                   if isinstance(p, Shard) and p.dim == 1]
-        if not groups:                # every slot here: the usual route
-            y = (flash_ops.flash_decode(ql, kl, vl, pos=pos, window=window)
-                 if cfg.attn_impl == "pallas"
-                 else _plain(ql, kl, vl, bias[None], cfg))
+        if groups:
+            y = slot_sharded_decode(ql, kl, vl, groups, cfg, pos=pos,
+                                    window=window, slot0=off[1], ring_len=L)
+        elif cfg.attn_impl == "pallas":   # every slot here: the usual route
+            y = flash_ops.flash_decode(ql, kl, vl, pos=pos, window=window)
         else:
-            y = slot_sharded_decode(ql, kl, vl, bias, groups, cfg)
+            y = _plain(ql, kl, vl, ring_bias(pos, L, window, q.device)[None],
+                       cfg)
         return DTensor.from_local(y, mesh, kept)
 
 

@@ -80,11 +80,19 @@ def test_flash_attention_kernel_matches_plain(gen, B, S, H, KV, hd, causal,
 
 
 # (B, L, H, KV, hd, pos, window): unwrapped (pos < L) and wrapped rings,
-# windows, grouped-query attention, every head dim
+# windows, grouped-query attention, every head dim; then the kernel's
+# chunk edges (ops.decode_chunk): L not a multiple of the chunk, chunks
+# that the window masks whole, slots never written (pos < L) filling whole
+# chunks; and groups G = H / KV of 1, 2, 4, 8 and 12 (two blocks per kv
+# head)
 DECODE_CASES = [(2, 4096, 32, 8, 128, 4095, 0), (2, 4096, 32, 32, 80, 4200, 0),
                 (2, 4096, 12, 12, 64, 100, 0), (2, 16, 4, 2, 16, 40, 16),
                 (3, 16, 8, 2, 128, 15, 0), (2, 48, 4, 4, 32, 70, 9),
-                (1, 33, 2, 1, 80, 5, 0), (2, 300, 8, 4, 64, 1000, 64)]
+                (1, 33, 2, 1, 80, 5, 0), (2, 300, 8, 4, 64, 1000, 64),
+                (1, 4133, 8, 1, 64, 4132, 0), (2, 4096, 16, 2, 64, 5000, 300),
+                (2, 4096, 8, 4, 128, 1000, 0), (2, 2048, 8, 8, 64, 2047, 0),
+                (2, 2048, 8, 4, 32, 2047, 0), (2, 2048, 16, 4, 16, 2047, 0),
+                (2, 2048, 32, 4, 64, 2047, 0), (1, 1000, 24, 2, 128, 999, 0)]
 
 
 @pytest.mark.parametrize("B,L,H,KV,hd,pos,window", DECODE_CASES)
@@ -104,6 +112,66 @@ def test_flash_decode_kernel_matches_plain(gen, B, L, H, KV, hd, pos, window,
     atol = (tol if dtype == torch.float32
             else tol * min(1.0, float(want.float().abs().max())))
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=tol)
+
+
+# tinyllama-1.1b's per-layer decode shapes (chip_smoke.py phase 8g):
+# decode_32k at 16 rows, long_500k
+DECODE_LONG = [(16, 32768, 32, 4, 64), (1, 524288, 32, 4, 64)]
+
+
+@pytest.mark.parametrize("B,L,H,KV,hd", DECODE_LONG)
+def test_flash_decode_kernel_matches_plain_on_long_caches(gen, B, L, H, KV,
+                                                          hd):
+    """f32, the last position of a full ring: two passes, over 66 chunks
+    (long_500k) or 4 (decode_32k) of each (b, kv head)."""
+    q = torch.randn(B, 1, H, hd, generator=gen, device="cuda")
+    k = torch.randn(B, L, KV, hd, generator=gen, device="cuda")
+    v = torch.randn(B, L, KV, hd, generator=gen, device="cuda")
+    assert k2_ops.decode_splits(B, KV, L, hd, 4) > 1
+    got = k2_ops.flash_decode(q, k, v, pos=L - 1)
+    want = k2_ref.decode_attention(q, k, v, L - 1)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# (B, L, H, KV, hd, pos, window): one ring cut into 2 and 4 shards of
+# slots, so that slot0 != 0; a window that masks some shards whole
+PARTIAL_CASES = [(2, 4096, 32, 8, 128, 4095, 0), (1, 8192, 32, 4, 64, 9000, 0),
+                 (2, 1024, 16, 2, 64, 1500, 200), (2, 64, 4, 2, 80, 40, 0)]
+
+
+@pytest.mark.parametrize("B,L,H,KV,hd,pos,window", PARTIAL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_partials_kernel_matches_plain(gen, B, L, H, KV, hd,
+                                                    pos, window, dtype):
+    """Each shard's (m, l, acc) against ref.decode_partials (m within
+    1e-4 and 1e-6 of itself: a shard masked whole has m near -1e9, which
+    the kernel reaches in base 2), and the shards joined on the card
+    against the plain whole."""
+    q = torch.randn(B, 1, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, L, KV, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, L, KV, hd, generator=gen, device="cuda").to(dtype)
+    want = k2_ref.decode_attention(q, k, v, pos, window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for shards in (2, 4):
+        n = L // shards
+        before = k2_ops.flash_decode_partials.launches
+        parts = [k2_ops.flash_decode_partials(
+            q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n], pos=pos,
+            window=window, ring_len=L, slot0=i * n) for i in range(shards)]
+        assert k2_ops.flash_decode_partials.launches == before + shards
+        for i, (m, l, acc) in enumerate(parts):
+            rm, rl, racc = k2_ref.decode_partials(
+                q, k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n], pos,
+                window, L, i * n)
+            torch.testing.assert_close(m, rm, atol=1e-4, rtol=1e-6)
+            torch.testing.assert_close(l, rl, atol=tol, rtol=tol)
+            torch.testing.assert_close(acc, racc, atol=tol * float(
+                racc.abs().max().clamp(min=1)), rtol=tol)
+        got = k2_ref.combine_partials(parts, dtype)
+        atol = (tol if dtype == torch.float32
+                else tol * min(1.0, float(want.float().abs().max())))
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=tol)
 
 
 def _misaligned(shape, dtype):

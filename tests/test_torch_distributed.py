@@ -25,8 +25,10 @@ it instead of stalling the suite.  One run serves every test here:
   ``launch/sharding.py::shard_cache`` (batch on "data", or for a batch
   of 1 the slots, a ring past its window included; kv heads on
   "model"), the dense, zamba and xLSTM families and a MoE layer on the
-  global dispatch (run replicated on DTensors), against the same model
-  whole, at the f32 bar of decode (atol 2e-5, rtol 2e-5).
+  global dispatch (run replicated on DTensors), and the slots sharded
+  under attn_impl="pallas" (each rank's softmax statistics from
+  ``flash_decode_partials``), against the same model whole, at the f32
+  bar of decode (atol 2e-5, rtol 2e-5).
 """
 import dataclasses
 import os
@@ -141,6 +143,11 @@ DECODE = {
     "dense_b4": (dict(block_pattern=("attn", "swa"), n_layers=2), 4, 8),
     "swa_ring_b1": (dict(block_pattern=("swa",) * 2, n_layers=2,
                          sliding_window=4), 1, 8),
+    # the slots on "data" under "pallas": each rank's statistics from
+    # flash_decode_partials (its CPU route here), an unwindowed cache and
+    # a ring past its window
+    "pallas_slots_b1": (dict(block_pattern=("attn", "swa"), n_layers=2,
+                             sliding_window=4, attn_impl="pallas"), 1, 8),
     "zamba_b4": (dict(block_pattern=("mamba2", "shared_attn") * 2,
                       n_layers=4), 4, 6),
     "xlstm_b2": (dict(block_pattern=("mlstm", "slstm"), n_layers=2), 2, 6),
@@ -405,7 +412,7 @@ def test_sharded_decode_matches_the_whole_model(run, name):
     np.testing.assert_allclose(got["got"].numpy(), got["want"].numpy(),
                                atol=2e-5, rtol=2e-5)
     pl = got["cache_placements"]
-    if name == "swa_ring_b1":
+    if name in ("swa_ring_b1", "pallas_slots_b1"):
         assert "(Shard(dim=1), Shard(dim=2))" in pl          # slots, heads
     elif name in ("dense_b4", "moe_global_b4"):
         assert "(Shard(dim=0), Shard(dim=2))" in pl          # batch, heads

@@ -332,35 +332,51 @@ class _Largest(tanalysis.Recorder):
         return super()._add(t)
 
 
-def test_pallas_plain_routes_refuse_cuda_tensors():
-    """The sharded forms' two routes with no kernel, a rank's subset of
-    query rows and a softmax completed over ranks that shard the cache's
-    slots, run their plain versions on CPU tensors only: under
+def test_pallas_plain_routes_refuse_cuda_tensors(monkeypatch):
+    """The sharded forms' route with no kernel, a rank's subset of query
+    rows, runs its plain version on CPU tensors only: under
     ``attn_impl="pallas"`` a CUDA tensor (a fake one here) raises instead
-    of running plain code on the card.  "einsum" and "blocked" are plain
-    by the config's choice."""
+    of running plain code on the card.  The softmax completed over ranks
+    that shard the cache's slots takes each rank's statistics from the
+    kernel's wrapper ``flash_decode_partials`` (a spy on the fake CUDA
+    tensors; its CPU route on CPU tensors).  "einsum" and "blocked" are
+    plain by the config's choice."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.launch import spmd
     cfg = TConfig(name="t", arch_type="x", n_layers=1, d_model=64,
                   n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=50,
                   block_pattern=("attn",), attn_impl="pallas")
+    slots = dict(pos=40, window=0, slot0=32, ring_len=64)
+    calls = []
+
+    def spy(q, k, v, **kw):
+        calls.append((q.device.type, kw))
+        B, _, H, hd = q.shape
+        return (torch.zeros((B, 1, H), device=q.device),
+                torch.ones((B, 1, H), device=q.device),
+                torch.zeros((B, 1, H, hd), device=q.device))
+
     with FakeTensorMode():
         for dev in ("cuda", "cpu"):
             q = torch.empty((2, 8, 4, 16), device=dev)
             kv = torch.empty((2, 32, 4, 16), device=dev)
             one = torch.empty((2, 1, 4, 16), device=dev)
-            bias = torch.zeros((1, 32), device=dev)
             if dev == "cuda":
                 with pytest.raises(NotImplementedError, match="row offset"):
                     spmd.local_attention(q, kv, kv, cfg, causal=False,
                                          window=0, row0=8, S=32)
-                with pytest.raises(NotImplementedError, match="flash_decode"):
-                    spmd.slot_sharded_decode(one, kv, kv, bias, [], cfg)
+                with monkeypatch.context() as mp:
+                    mp.setattr(spmd.flash_ops, "flash_decode_partials", spy)
+                    y = spmd.slot_sharded_decode(one, kv, kv, [], cfg,
+                                                 **slots)
+                assert calls == [("cuda", dict(pos=40, window=0,
+                                               ring_len=64, slot0=32))]
+                assert y.shape == one.shape and y.device.type == "cuda"
                 continue
             y = spmd.local_attention(q, kv, kv, cfg, causal=False, window=0,
                                      row0=8, S=32)
             assert y.shape == q.shape and y.device.type == "cpu"
-            y = spmd.slot_sharded_decode(one, kv, kv, bias, [], cfg)
+            y = spmd.slot_sharded_decode(one, kv, kv, [], cfg, **slots)
             assert y.shape == one.shape
     with FakeTensorMode():
         q = torch.empty((2, 8, 4, 16), device="cuda")

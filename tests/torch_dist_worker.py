@@ -130,9 +130,10 @@ def train_steps(inputs, out_dir):
 def decode(inputs, out_dir):
     """``Model.decode_step`` of a sharded model over caches placed by
     ``shard_cache`` (a batch that divides the data axis: batch on "data";
-    a batch of 1: the slots on "data"; kv heads on "model"), token by
-    token, and the same model whole on every rank; logits of every
-    position, the sharded ones gathered whole."""
+    a batch of 1: the slots on "data", whose softmax completes over the
+    ranks, under attn_impl="pallas" from ``flash_decode_partials``; kv
+    heads on "model"), token by token, and the same model whole on every
+    rank; logits of every position, the sharded ones gathered whole."""
     from torch.distributed.tensor.experimental import implicit_replication
     mesh = _mesh()
     policy = tsharding.ShardingPolicy()
