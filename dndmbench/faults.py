@@ -1,0 +1,96 @@
+"""Faults planted under the timed path, and the control, for the tests
+and for ``calibrate.py --fault``.  Each takes a ``setattr(obj, name,
+value)`` (pytest's ``monkeypatch.setattr``, or a plain one that the
+caller undoes) and breaks one thing the check must catch."""
+from __future__ import annotations
+
+import torch
+
+from dndmbench import harness, weights
+from dndmbench.reference import model as ref_model
+
+
+def state_unchanged(setattr_):
+    """Every call returns its tokens as they came in."""
+    from repro_torch.core import decode
+    setattr_(decode, "fused_update", lambda logits, x, *a, **k: x)
+    setattr_(decode, "decode_tokens", lambda logits, *a, **k: (
+        torch.full(logits.shape[:2], logits.shape[-1] - 1,
+                   dtype=torch.int32, device=logits.device),
+        torch.zeros(logits.shape[:2], device=logits.device)))
+
+
+def half_batch_left_out(setattr_):
+    """The denoiser computes the first half of the rows; the rest get
+    the mean of those."""
+    from repro_torch.models import model
+    forward = model.Model.forward
+
+    def half(self, tokens, *a, **k):
+        h = max(1, tokens.shape[0] // 2)
+        out = forward(self, tokens[:h], *[x[:h] if torch.is_tensor(x)
+                                          and x.dim() else x for x in a], **k)
+        rest = out.mean(0, keepdim=True).expand(tokens.shape[0] - h,
+                                                *out.shape[1:])
+        return torch.cat([out, rest])
+    setattr_(model.Model, "forward", half)
+
+
+def token_altered(setattr_):
+    """The decode kernels' chosen token is moved to the next id (never
+    to [MASK]) where it is produced."""
+    from repro_torch.kernels.decode_scores import ops as sops
+    from repro_torch.kernels.dndm_update import ops as dops
+    upd, scores = dops.dndm_update, sops.decode_scores
+
+    def bad_update(logits, x, tau, t, **k):
+        out = upd(logits, x, tau, t, **k)
+        K = logits.shape[-1]
+        return torch.where(tau == t, (out + 1) % (K - 1), out)
+
+    def bad_scores(logits, **k):
+        tok, s = scores(logits, **k)
+        return (tok + 1) % (logits.shape[-1] - 1), s
+    # the wrappers count launches on the module's function
+    bad_update.launches, bad_scores.launches = 0, 0
+    setattr_(dops, "dndm_update", bad_update)
+    setattr_(sops, "decode_scores", bad_scores)
+
+
+def finished_twice(setattr_):
+    """Every request is recorded as finished a second time, as when a
+    finished row is not freed and completes again."""
+    from repro_torch.serving import scheduler
+
+    def again(step):
+        def wrapped(self, *a, **k):
+            before = set(self.done)
+            out = step(self, *a, **k)
+            for rid in set(self.done) - before:
+                self.done[rid] = self.done[rid]
+            return out
+        return wrapped
+    setattr_(scheduler.ContinuousScheduler, "pump",
+             again(scheduler.ContinuousScheduler.pump))
+    setattr_(scheduler.BatchScheduler, "run",
+             again(scheduler.BatchScheduler.run))
+
+
+def control(setattr_, doc: dict, seed: int, device) -> None:
+    """The control: the reference in the program's place, its products
+    in TF32, on the run's weights."""
+    from repro_torch.models import model
+    tree = weights.make(doc["model"], harness.subseed(seed, 0), device)
+
+    def denoise_fn(self, cond=None):
+        def fn(x, t, c):
+            with ref_model.precision("tf32", device):
+                return ref_model.forward(tree, doc["model"], x, t)
+        return fn
+    setattr_(model.Model, "denoise_fn", denoise_fn)
+
+
+FAULTS = {"state_unchanged": state_unchanged,
+          "half_batch_left_out": half_batch_left_out,
+          "token_altered": token_altered,
+          "finished_twice": finished_twice}

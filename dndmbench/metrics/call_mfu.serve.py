@@ -1,0 +1,12 @@
+"""The window's model operations at the live rows over its seconds, as a share of 495 TFLOP/s."""
+from dndmbench import readers
+
+LAYER = "denoiser (models/)"
+UNIT = "%"
+MOVES = "latency_p50_s"
+SOURCE = "host_clock"
+WORKLOADS = ["text8-serve"]
+
+
+def read(ctx):
+    return readers.call_mfu(ctx)

@@ -1,0 +1,12 @@
+"""1 - the union of the device's operations over the traced window, in %."""
+from dndmbench import readers
+
+LAYER = "device (H100)"
+UNIT = "%"
+MOVES = "tokens_per_s"
+SOURCE = "device_trace"
+WORKLOADS = ["text8-batch", "zamba2-batch"]
+
+
+def read(ctx):
+    return readers.idle_share(ctx)

@@ -1,0 +1,12 @@
+"""Median due-to-completion seconds of the requests due in the window."""
+from dndmbench import readers
+
+LAYER = "run"
+UNIT = "s"
+MOVES = "latency_p50_s"
+SOURCE = "host_clock"
+WORKLOADS = ["text8-serve"]
+
+
+def read(ctx):
+    return readers.latency(ctx, 50)

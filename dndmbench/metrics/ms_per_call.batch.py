@@ -1,0 +1,12 @@
+"""Window seconds over the network calls made in it."""
+from dndmbench import readers
+
+LAYER = "denoiser (models/)"
+UNIT = "ms"
+MOVES = "tokens_per_s"
+SOURCE = "host_clock"
+WORKLOADS = ["text8-batch", "zamba2-batch"]
+
+
+def read(ctx):
+    return readers.ms_per_call(ctx)

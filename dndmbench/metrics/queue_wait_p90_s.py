@@ -1,0 +1,12 @@
+"""90th percentile of due-to-admission seconds, on the harness's clock."""
+from dndmbench import readers
+
+LAYER = "scheduler (serving/scheduler.py)"
+UNIT = "s"
+MOVES = "latency_p90_s"
+SOURCE = "host_clock"
+WORKLOADS = ["text8-serve"]
+
+
+def read(ctx):
+    return readers.queue_wait(ctx, 90)

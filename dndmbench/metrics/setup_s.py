@@ -1,0 +1,10 @@
+"""Process start to window open: imports, the kernels' build or load, weights, warm-up and the ramp."""
+LAYER = "run"
+UNIT = "s"
+MOVES = "setup_s"
+SOURCE = "host_clock"
+WORKLOADS = ["text8-serve", "text8-batch", "zamba2-batch"]
+
+
+def read(ctx):
+    return ctx.setup_s

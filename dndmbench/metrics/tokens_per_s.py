@@ -1,0 +1,10 @@
+"""Tokens completed in the window over its length, closed loop."""
+LAYER = "run"
+UNIT = "tokens/s"
+MOVES = "tokens_per_s"
+SOURCE = "host_clock"
+WORKLOADS = ["text8-batch", "zamba2-batch"]
+
+
+def read(ctx):
+    return (ctx.tokens / ctx.window_s if ctx.traffic['loop'] == 'closed' and ctx.window_s else None)
