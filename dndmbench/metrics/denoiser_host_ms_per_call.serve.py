@@ -1,0 +1,13 @@
+"""The denoiser's host ms per traced call: ``model.forward`` with its
+``model.block`` children, outside CUDA runtime calls."""
+from dndmbench import spans
+
+LAYER = "denoiser (models/)"
+UNIT = "ms"
+MOVES = "latency_p50_s"
+SOURCE = "program_span"
+WORKLOADS = ["text8-serve"]
+
+
+def read(ctx):
+    return spans.layer_host_ms(ctx, spans.DENOISER)

@@ -19,7 +19,9 @@ own generator: :func:`row_gumbel_noise` and :func:`row_uniform`.
 With telemetry on, every decode counts in ``decode.backend_calls`` (labels
 ``op`` and ``backend``: ``kernel`` for CUDA tensors, ``reference`` for the
 plain version on CPU tensors), once per call: the JAX package counts at
-trace time, once per compiled program.
+trace time, once per compiled program.  While a torch profiler records,
+each noise draw is a ``decode.draw`` layer span and each decode, through
+its kernel launch, a ``decode.kernel`` one (``obs.layer_span``).
 """
 from __future__ import annotations
 
@@ -38,10 +40,11 @@ def gumbel_noise(generator: torch.Generator, shape,
     [tiny, 1) so that no draw is infinite."""
     if not isinstance(generator, torch.Generator):
         raise TypeError("Gumbel noise draws from an explicit torch.Generator")
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
-    u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    with obs.layer_span("decode.draw"):
+        u = torch.rand(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+        u.clamp_(min=torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
 
 
 def row_gumbel_noise(sources, shape, device=None) -> torch.Tensor:
@@ -54,33 +57,36 @@ def row_gumbel_noise(sources, shape, device=None) -> torch.Tensor:
     One ``rand`` per drawing row, then one clamp/log/neg chain over the
     whole slab: drawing rows + 5 launches, element for element the solo
     slab."""
-    slab = (torch.empty if all(isinstance(s, torch.Generator)
-                               for s in sources) else torch.zeros)(
-        (len(sources), *shape), dtype=torch.float32, device=device)
-    for i, s in enumerate(sources):
-        if isinstance(s, torch.Generator):
-            torch.rand(shape, generator=s, out=slab[i])
-    slab.clamp_(min=torch.finfo(torch.float32).tiny)
-    slab.log_().neg_().log_().neg_()
-    for i, s in enumerate(sources):
-        if isinstance(s, torch.Tensor):
-            slab[i].copy_(s.reshape(shape))
-    return slab
+    with obs.layer_span("decode.draw"):
+        slab = (torch.empty if all(isinstance(s, torch.Generator)
+                                   for s in sources) else torch.zeros)(
+            (len(sources), *shape), dtype=torch.float32, device=device)
+        for i, s in enumerate(sources):
+            if isinstance(s, torch.Generator):
+                torch.rand(shape, generator=s, out=slab[i])
+        slab.clamp_(min=torch.finfo(torch.float32).tiny)
+        slab.log_().neg_().log_().neg_()
+        for i, s in enumerate(sources):
+            if isinstance(s, torch.Tensor):
+                slab[i].copy_(s.reshape(shape))
+        return slab
 
 
 def row_uniform(sources, n: int, device=None) -> torch.Tensor:
     """(B, n) f32 uniforms on [0, 1), row i from ``sources[i]`` as in
     :func:`row_gumbel_noise` (an injected row is an (n,) uniform); the
     same numbers a solo ``torch.rand((1, n))`` draws from that state."""
-    u = (torch.empty if all(isinstance(s, torch.Generator) for s in sources)
-         else torch.zeros)((len(sources), n), dtype=torch.float32,
-                           device=device)
-    for i, s in enumerate(sources):
-        if isinstance(s, torch.Generator):
-            torch.rand((n,), generator=s, out=u[i])
-        elif isinstance(s, torch.Tensor):
-            u[i].copy_(s.reshape(n))
-    return u
+    with obs.layer_span("decode.draw"):
+        u = (torch.empty if all(isinstance(s, torch.Generator)
+                                for s in sources)
+             else torch.zeros)((len(sources), n), dtype=torch.float32,
+                               device=device)
+        for i, s in enumerate(sources):
+            if isinstance(s, torch.Generator):
+                torch.rand((n,), generator=s, out=u[i])
+            elif isinstance(s, torch.Tensor):
+                u[i].copy_(s.reshape(n))
+        return u
 
 
 def _gumbel(generator, shape, x0_mode: str, device) -> torch.Tensor | None:
@@ -122,13 +128,14 @@ def fused_update(logits: torch.Tensor, x: torch.Tensor, tau: torch.Tensor,
     ``gumbel`` overrides the noise drawn from ``generator`` (sample mode
     only) — the tests replay the JAX package's draws through it.
     """
-    _count("fused_update", logits)
-    mask = _logit_mask(noise, logits.device)
     if gumbel is None:
         gumbel = _gumbel(generator, logits.shape, cfg.x0_mode, logits.device)
-    return _ops.dndm_update(logits, x, tau, int(t), mask=mask,
-                            gumbel=gumbel, version=version,
-                            temperature=cfg.temperature)
+    with obs.layer_span("decode.kernel"):
+        _count("fused_update", logits)
+        mask = _logit_mask(noise, logits.device)
+        return _ops.dndm_update(logits, x, tau, int(t), mask=mask,
+                                gumbel=gumbel, version=version,
+                                temperature=cfg.temperature)
 
 
 def decode_tokens(logits: torch.Tensor, noise, cfg, *,
@@ -144,9 +151,10 @@ def decode_tokens(logits: torch.Tensor, noise, cfg, *,
     overrides the noise drawn from ``generator`` (sample mode only), as in
     :func:`fused_update`.
     """
-    _count("decode_tokens", logits)
-    mask = _logit_mask(noise, logits.device)
     if gumbel is None:
         gumbel = _gumbel(generator, logits.shape, cfg.x0_mode, logits.device)
-    return _sops.decode_scores(logits, mask=mask, gumbel=gumbel,
-                               temperature=cfg.temperature)
+    with obs.layer_span("decode.kernel"):
+        _count("decode_tokens", logits)
+        mask = _logit_mask(noise, logits.device)
+        return _sops.decode_scores(logits, mask=mask, gumbel=gumbel,
+                                   temperature=cfg.temperature)

@@ -8,7 +8,9 @@ methods the JAX package runs as one ``lax.scan``: the ``scan`` kind).  A
 host loop over a known grid is the port's form of that scan; CUDA-graph
 capture of it comes later.
 
-The host loop is the telemetry anchor for DNDM's headline claim, as in
+Each network call of either loop is a ``sampler.call`` layer span
+(``obs.layer_span``: recorded while a torch profiler records).  The host
+loop is the telemetry anchor for DNDM's headline claim, as in
 the JAX package: with ``repro_torch.obs`` enabled it records per-step
 host time (``sampler.step_seconds``) and emits one ``sampler.step`` event
 per network call, with whatever the sampler supplies via ``step_attrs``
@@ -109,8 +111,9 @@ def scan_loop(times, carry, step: Callable, *per_call):
     where ``draws_i`` holds entry ``i`` of each injected per-call list in
     ``per_call`` (None for a list that is None)."""
     for i, t in enumerate(times):
-        carry = step(carry, int(t),
-                     *(None if d is None else d[i] for d in per_call))
+        with obs.layer_span("sampler.call"):
+            carry = step(carry, int(t),
+                         *(None if d is None else d[i] for d in per_call))
     return carry
 
 
@@ -131,8 +134,9 @@ def host_loop(times, carry, step: Callable, *per_call,
             "host-side dispatch seconds per host-loop step (no sync)")
     for i, t in enumerate(times):
         t0 = time.perf_counter()
-        carry = step(carry, int(t),
-                     *(None if d is None else d[i] for d in per_call))
+        with obs.layer_span("sampler.call"):
+            carry = step(carry, int(t),
+                         *(None if d is None else d[i] for d in per_call))
         if enabled:
             dt = time.perf_counter() - t0
             hist.observe(dt, loop="host")

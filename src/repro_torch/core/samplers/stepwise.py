@@ -49,6 +49,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import decode
 from repro_torch.core.posterior import posterior
 from repro_torch.core.samplers import loop
@@ -177,9 +178,11 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _columns(rt, *cols) -> torch.Tensor:
     """Per-row host values (each (B,), exact in f32) as one (len(cols),
-    B) f32 tensor on the device, in one copy per call."""
-    return to_device(np.stack(cols).astype(np.float32, copy=False),
-                     rt.device)
+    B) f32 tensor on the device, in one copy per call (the
+    ``runner.inputs`` span)."""
+    with obs.layer_span("runner.inputs"):
+        return to_device(np.stack(cols).astype(np.float32, copy=False),
+                         rt.device)
 
 
 def _live(t_row: np.ndarray, T: int) -> np.ndarray:

@@ -21,6 +21,10 @@ one shared weight set); the caches are updated in place.  With
 backward instead of kept, as ``jax.checkpoint`` does in the reference;
 values and gradients are the same either way.
 
+While a torch profiler records, each call of the samplers' denoiser is a
+``model.forward`` layer span and each block of the stack a ``model.block``
+span under it, with the block's ``kind`` (``obs.layer_span``).
+
 Float32 products stay float32 on the card: the port relies on PyTorch's
 default ``torch.backends.cuda.matmul.allow_tf32 == False``.
 """
@@ -32,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
+from repro_torch import obs
 from repro_torch.models import blocks, frontend
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import RMSNorm, TimeEmbed, dense_init
@@ -112,7 +117,8 @@ class Model(nn.Module):
         terms = []
         n = len(self.unit)
         for kind, blk in zip(self.unit, self.blocks[j * n:(j + 1) * n]):
-            h, aux = self._block(kind, blk)(h, causal=causal)
+            with obs.layer_span("model.block", kind=kind):
+                h, aux = self._block(kind, blk)(h, causal=causal)
             if aux is not None:
                 terms.append(aux)
         return h, terms
@@ -126,15 +132,16 @@ class Model(nn.Module):
         {"frontend_embeds": (B, F, d)}.
         """
         def fn(x_t, t, cond_rt):
-            c = cond_rt if cond_rt is not None else (cond or {})
-            fe = c.get("frontend_embeds")
-            prefix = c.get("prefix_tokens")
-            if prefix is not None:
-                full = torch.cat([prefix.to(x_t.dtype), x_t], dim=1)
-                logits = self.forward(full, t, fe, causal=False)
-                # contiguous: the decode kernel reads (B, N, K) densely
-                return logits[:, prefix.shape[1]:].contiguous()
-            return self.forward(x_t, t, fe, causal=False)
+            with obs.layer_span("model.forward"):
+                c = cond_rt if cond_rt is not None else (cond or {})
+                fe = c.get("frontend_embeds")
+                prefix = c.get("prefix_tokens")
+                if prefix is not None:
+                    full = torch.cat([prefix.to(x_t.dtype), x_t], dim=1)
+                    logits = self.forward(full, t, fe, causal=False)
+                    # contiguous: the decode kernel reads (B, N, K) densely
+                    return logits[:, prefix.shape[1]:].contiguous()
+                return self.forward(x_t, t, fe, causal=False)
         return fn
 
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> list:

@@ -28,6 +28,15 @@ instrumented call site).  Ways to turn it on:
 in ``torch.profiler.profile`` (CPU and, on a card, CUDA activity) and
 writes a Chrome trace per call into ``dir``.
 
+Spans also record, with telemetry off, while any ``torch.profiler``
+session records: the request-level spans (``obs.span``) and the layer
+spans below a network call (``obs.layer_span``: ``engine.plan``,
+``runner.*``, ``sampler.call``, ``model.forward``, ``model.block``,
+``decode.draw``, ``decode.kernel``), which record *only* then.  Every
+record is stamped on :func:`clock_ns`, monotonic nanoseconds on the
+Unix epoch (the profiler's time base), and so are the schedulers'
+``Request.t_submit`` / ``t_admit`` / ``t_done`` (in seconds).
+
 Every serving-path record carries the request id minted at
 ``submit()``; ``obs.timeline(request_id)`` (optionally with a trace-file
 path) reconstructs one request's full submit → admission → per-call →
@@ -41,14 +50,16 @@ from repro_torch.obs import exporter, metrics, sketch, slo, tracing
 from repro_torch.obs.metrics import (counter, disable, enable, enabled,
                                      gauge, histogram, reset, snapshot,
                                      suppressed)
-from repro_torch.obs.tracing import (event, flush_sink, maybe_profile,
-                                     set_sink, span, summary, timeline,
+from repro_torch.obs.tracing import (clock_ns, event, flush_sink,
+                                     layer_span, maybe_profile, set_sink,
+                                     span, summary, timeline,
                                      write_metrics_record)
 
 __all__ = [
     "counter", "gauge", "histogram", "snapshot", "reset",
     "enable", "disable", "enabled", "suppressed",
-    "span", "event", "summary", "set_sink", "flush_sink", "timeline",
+    "span", "layer_span", "event", "clock_ns", "summary", "set_sink",
+    "flush_sink", "timeline",
     "write_metrics_record", "maybe_profile",
     "metrics", "tracing", "sketch", "exporter", "slo",
     "configure_from_env",

@@ -41,9 +41,9 @@ def enabled() -> bool:
 
 @contextlib.contextmanager
 def suppressed():
-    """Temporarily silence every instrument (and, via the shared
-    ``enabled()`` gate, trace spans/events) without touching the global
-    on/off state.  For work that re-executes an already-measured
+    """Temporarily silence every instrument, trace event and span (a
+    profiler session included) without touching the global on/off
+    state.  For work that re-executes an already-measured
     computation — e.g. the engine's untimed host-sampler warm-up run —
     where recording would double-count real serving metrics.  Reentrant;
     not thread-local (the repo's schedulers are single-threaded)."""

@@ -38,7 +38,8 @@ version 2, tagged ``"kind": "serving"``)::
 **REPRO_TRACE JSON-lines** — one object per line, three kinds::
 
     {"kind": "span",    "name": str, "ts": float, "span_id": int,
-     "parent_id": int|null, "dur_s": float, "attrs": {...}}
+     "parent_id": int|null, "dur_s": float, "t0_ns": int, "t1_ns": int,
+     "attrs": {...}}
     {"kind": "event",   "name": str, "ts": float, "span_id": int,
      "parent_id": int|null, "attrs": {...}}
     {"kind": "metrics", "ts": float, "span_id": int, "parent_id": null,
@@ -53,7 +54,10 @@ record yet), every trace line, and the acceptance-level content of a
 serving trace that ran a DNDM host sampler behind a scheduler: an
 ``engine.generate`` span with nfe/backend/jit-cache attrs, per-step
 ``sampler.step`` events carrying |R_t| (``reveal``), and a ``metrics``
-record with scheduler occupancy.  A lone ``*.jsonl`` argument is checked
+record with scheduler occupancy.  ``ts`` is seconds on the port's
+``obs.clock_ns`` (monotonic, on the Unix epoch); a span's ``t0_ns`` and
+``t1_ns`` are its two stamps (the JAX package's spans have neither, and
+neither schema requires them).  A lone ``*.jsonl`` argument is checked
 as a trace.  This is the port's copy of ``repro.obs.schema``: the two
 accept each other's traces.
 """

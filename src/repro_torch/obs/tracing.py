@@ -6,13 +6,26 @@ nesting is tracked per-thread, so a scheduler batch span contains the
 engine span which contains the per-step sampler events.  An *event* is a
 point-in-time record attached to the current span.
 
-When disabled (the default), :func:`span` returns a shared no-op
-singleton and :func:`event` returns after one guard check — nothing is
-allocated or recorded.  When enabled, records accumulate in a bounded
-in-memory buffer (``records()``/:func:`summary`) and, if a sink is set
-(``REPRO_TRACE=path.jsonl`` or :func:`set_sink`), each record is also
-appended to the file as one JSON line.  The export schema is documented
-and validated in :mod:`repro_torch.obs.schema`.
+Every record is stamped on one clock, :func:`clock_ns`: the monotonic
+``time.perf_counter_ns()`` shifted onto Unix-epoch nanoseconds, the time
+base of ``torch.profiler``'s events, so a span lines up with the device
+trace recorded beside it.  A span stamps its start and end once each
+(``t0_ns``, ``t1_ns``); ``ts`` and ``dur_s`` are the same two stamps in
+seconds.
+
+Two gates.  :func:`span` (the request-level spans: ``scheduler.*``,
+``engine.generate``, ``engine.stepwise``) records when telemetry is
+enabled *or* while a ``torch.profiler`` session records;
+:func:`layer_span` (the layers below a network call: ``model.forward``,
+``decode.kernel``, ...) only while a profiler records, so an enabled
+trace keeps the JAX package's per-request timelines.  Neither records
+under ``obs.suppressed()``.  Events keep the ``obs.enabled()`` gate.
+When a gate is shut the call returns a shared no-op singleton after one
+check — nothing is allocated or recorded.  Records accumulate in a
+bounded in-memory buffer (``records()``/:func:`summary`) and, if a sink
+is set (``REPRO_TRACE=path.jsonl`` or :func:`set_sink`), each record is
+also appended to the file as one JSON line.  The export schema is
+documented and validated in :mod:`repro_torch.obs.schema`.
 
 ``maybe_profile()`` is the optional device-level hook: when
 ``REPRO_TORCH_PROFILE=dir`` is set it wraps the region in
@@ -28,6 +41,8 @@ import json
 import os
 import threading
 import time
+
+from torch._C._autograd import _profiler_enabled as _profiling
 
 from repro_torch.obs import metrics as _metrics
 
@@ -55,6 +70,21 @@ _sink_path: str | None = None
 _sink_buf: list[str] = []
 _sink_last_flush = 0.0
 _sink_lock = threading.Lock()
+# clock_ns() = perf_counter_ns() + _epoch_offset; taken at import and again
+# whenever span recording turns on with no span open (_live tracks it)
+_epoch_offset = time.time_ns() - time.perf_counter_ns()
+_live = False
+
+
+def clock_ns() -> int:
+    """Monotonic nanoseconds on the Unix epoch: ``perf_counter_ns()`` plus
+    the offset of an anchor pair ``(time_ns(), perf_counter_ns())``."""
+    return time.perf_counter_ns() + _epoch_offset
+
+
+def _anchor() -> None:
+    global _epoch_offset
+    _epoch_offset = time.time_ns() - time.perf_counter_ns()
 
 
 def _stack() -> list:
@@ -134,7 +164,7 @@ NULL_SPAN = _NullSpan()
 
 
 class Span:
-    __slots__ = ("name", "attrs", "span_id", "parent_id", "ts", "_t0")
+    __slots__ = ("name", "attrs", "span_id", "parent_id", "t0_ns")
 
     def __init__(self, name: str, attrs: dict):
         self.name = name
@@ -144,9 +174,8 @@ class Span:
         st = _stack()
         self.parent_id = st[-1].span_id if st else None
         self.span_id = _next_id()
-        self.ts = time.time()
-        self._t0 = time.perf_counter()
         st.append(self)
+        self.t0_ns = clock_ns()
         return self
 
     def set(self, **attrs):
@@ -154,22 +183,45 @@ class Span:
         return self
 
     def __exit__(self, *exc):
-        dur = time.perf_counter() - self._t0
+        t1 = clock_ns()
         st = _stack()
         if st and st[-1] is self:
             st.pop()
-        _emit({"kind": "span", "name": self.name, "ts": self.ts,
+        t0 = self.t0_ns
+        _emit({"kind": "span", "name": self.name, "ts": t0 / 1e9,
                "span_id": self.span_id, "parent_id": self.parent_id,
-               "dur_s": dur,
+               "dur_s": (t1 - t0) / 1e9, "t0_ns": t0, "t1_ns": t1,
                "attrs": {k: _coerce(v) for k, v in self.attrs.items()}})
         return False
 
 
-def span(name: str, **attrs):
-    """Timed region; no-op singleton when telemetry is disabled."""
-    if not _metrics.enabled():
-        return NULL_SPAN
+def _recording(name: str, attrs: dict) -> Span:
+    global _live
+    if not _live:
+        _live = True
+        if not _stack():
+            _anchor()
     return Span(name, attrs)
+
+
+def span(name: str, **attrs):
+    """Timed region: recorded when telemetry is enabled or a torch
+    profiler records, never under ``suppressed()``; else the no-op
+    singleton."""
+    global _live
+    if _metrics._SUPPRESSED or not (_metrics._ENABLED or _profiling()):
+        _live = False
+        return NULL_SPAN
+    return _recording(name, attrs)
+
+
+def layer_span(name: str, **attrs):
+    """A span below the request level: recorded only while a torch
+    profiler records (never under ``suppressed()``); else the no-op
+    singleton."""
+    if _metrics._SUPPRESSED or not _profiling():
+        return NULL_SPAN
+    return _recording(name, attrs)
 
 
 def event(name: str, **attrs) -> None:
@@ -177,7 +229,7 @@ def event(name: str, **attrs) -> None:
     if not _metrics.enabled():
         return
     st = _stack()
-    _emit({"kind": "event", "name": name, "ts": time.time(),
+    _emit({"kind": "event", "name": name, "ts": clock_ns() / 1e9,
            "span_id": _next_id(),
            "parent_id": st[-1].span_id if st else None,
            "attrs": {k: _coerce(v) for k, v in attrs.items()}})
@@ -197,7 +249,7 @@ def write_metrics_record() -> None:
     if _dropped:        # counter may predate enable(); pin the total
         _metrics.gauge("obs.trace.dropped_records_total",
                        "final in-memory drop total").set(_dropped)
-    _emit({"kind": "metrics", "ts": time.time(), "span_id": _next_id(),
+    _emit({"kind": "metrics", "ts": clock_ns() / 1e9, "span_id": _next_id(),
            "parent_id": None, "attrs": {},
            "metrics": _metrics.snapshot()})
 

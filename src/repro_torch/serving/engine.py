@@ -14,7 +14,11 @@ same seed replays the same run, solo or as one row of a
 With ``repro_torch.obs`` enabled, every ``generate`` is an
 ``engine.generate`` span feeding the ``engine.*`` metrics, and every
 runner call an ``engine.stepwise`` span, with the JAX package's names and
-attributes.
+attributes.  Both spans also record while a ``torch.profiler`` session
+records, and so do the layer spans below them (``obs.layer_span``):
+``engine.plan`` (``plan_request``), ``runner.admit``, ``runner.inputs``
+(a call's per-row host columns) and ``runner.harvest`` (the copy of
+finishing rows to the host).
 """
 from __future__ import annotations
 
@@ -224,8 +228,8 @@ class GenerationEngine:
         """
         m = method or self.cfg.method
         spec = self.check_method(m)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        with torch.inference_mode():
+        with obs.layer_span("engine.plan"), torch.inference_mode():
+            gen = torch.Generator(device=self.device).manual_seed(seed)
             return spec.schedule_fn(gen, self.runtime(), N, draws)
 
     def stepwise(self, rows: int, N: int, method: str | None = None,
@@ -328,7 +332,7 @@ class StepwiseRunner:
                 raise ValueError("plan already admitted; a plan's generator "
                                  "is consumed by its run")
         dev = self.engine.device
-        with torch.inference_mode():
+        with obs.layer_span("runner.admit"), torch.inference_mode():
             idx = to_device(np.array([row for row, _ in pairs]), dev)
             self.x.index_copy_(0, idx, torch.stack(
                 [p.x0.reshape(self.N) for _, p in pairs]))
@@ -376,15 +380,17 @@ class StepwiseRunner:
                     {"x": self.x, "revealed": self.revealed}, self.tau,
                     t_row, calls, cond, self.rt)
             self.x, self.revealed = state["x"], state["revealed"]
+            finished = [i for i in active
+                        if self._ptr[i] + 1 == len(self._plans[i].times)]
+            if finished:
+                # one device-to-host copy of the whole buffer
+                with obs.layer_span("runner.harvest"):
+                    host_x = self.x.cpu().numpy()
         self.calls += 1
         self.engine.network_calls += 1
         if obs.enabled():
             obs.counter("engine.stepwise_calls").inc(method=self.method)
         done: dict[int, np.ndarray] = {}
-        finished = [i for i in active
-                    if self._ptr[i] + 1 == len(self._plans[i].times)]
-        # one device-to-host copy of the whole buffer
-        host_x = self.x.cpu().numpy() if finished else None
         for i in active:
             self._ptr[i] += 1
             if i in finished:

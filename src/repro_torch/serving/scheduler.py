@@ -22,13 +22,14 @@ Every request gets a trace identity at ``submit()``
 schedulers emit the JAX package's ``scheduler.*`` events, spans and
 metrics under it, and score each completed request against the SLO
 budgets (``obs.slo``), so ``obs.timeline(request_id)`` rebuilds a
-request's submit → admission → per-call → completion history.
+request's submit → admission → per-call → completion history.  The
+``scheduler.*`` spans also record while a ``torch.profiler`` session
+records (``obs.span``); request timestamps are on ``obs.clock_ns``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-import time
 
 import numpy as np
 import torch
@@ -59,7 +60,8 @@ class Request:
     batch_wall: float = 0.0                 # wall-clock of the whole batch
     batch_size: int = 0                     # requests served in that batch
     compile_seconds: float = 0.0            # the batch's one-time warm-up
-    # lifecycle timestamps (time.time()): queue latency = t_admit -
+    # lifecycle timestamps, seconds on obs.clock_ns() (monotonic, on the
+    # Unix epoch, the profiler's time base): queue latency = t_admit -
     # t_submit, service time = t_done - t_admit
     t_submit: float = 0.0
     t_admit: float = 0.0
@@ -119,7 +121,7 @@ class BatchScheduler:
         self._rid += 1
         req = Request(self._rid, length, prefix, method)
         req.request_id = mint_request_id()
-        req.t_submit = time.time()
+        req.t_submit = obs.clock_ns() / 1e9
         if obs.enabled():
             obs.event("scheduler.submit", request_id=req.request_id,
                       method=method, length=length, mode="drain")
@@ -172,8 +174,9 @@ class BatchScheduler:
                     pre[i, P - len(r.prefix):] = r.prefix
                 cond = {"prefix_tokens": torch.as_tensor(pre, device=dev)}
             seed = _draw_seed(self._seeds)
-            t_admit = time.time()
-            rids = ",".join(r.request_id for r in batch)
+            t_admit = obs.clock_ns() / 1e9
+            rids = (",".join(r.request_id for r in batch)
+                    if obs.enabled() else "")
             with obs.span("scheduler.batch", method=m, requests=len(batch),
                           bucket=B, request_ids=rids) as sp:
                 if obs.enabled():
@@ -198,7 +201,7 @@ class BatchScheduler:
                            occupancy=len(batch) / B)
             toks = out.tokens.cpu().numpy()
             share = wall / len(batch)
-            t_done = time.time()
+            t_done = obs.clock_ns() / 1e9
             for i, r in enumerate(batch):
                 r.result = toks[i, : r.length]
                 r.nfe = out.nfe
@@ -285,7 +288,7 @@ class ContinuousScheduler:
         r.plan = self.engine.plan_request(r.seed, self.bucket_len, method)
         # the runner reads the id back to label every call the row rides
         r.plan.request_id = r.request_id
-        r.t_submit = time.time()
+        r.t_submit = obs.clock_ns() / 1e9
         if obs.enabled():
             obs.event("scheduler.submit", request_id=r.request_id,
                       method=method, length=length, mode="continuous",
@@ -324,7 +327,7 @@ class ContinuousScheduler:
         runner.admit_many(
             [(row, r.plan) for row, r in placed],
             [r.prefix for _, r in placed] if group[1] else None)
-        t_admit = time.time()
+        t_admit = obs.clock_ns() / 1e9
         for row, r in placed:
             self._row_req[(group, row)] = r
             r.t_admit = t_admit
@@ -380,7 +383,7 @@ class ContinuousScheduler:
                        live_rows=len(runner.active_rows()))
             finished = runner.step()
             self.total_calls += 1
-            t_done = time.time()
+            t_done = obs.clock_ns() / 1e9
             for row, toks in finished.items():
                 r = self._row_req.pop((group, row))
                 r.result = toks[: r.length]
