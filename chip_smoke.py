@@ -47,6 +47,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      bf16), then the zamba2 path's shape (B, S, H, P, N, L) = (4, 256,
      80, 64, 64, 128) and a ragged S = 200 in f32, where y is also held
      against the exact recurrence ref.ssd_sequential (bar SSD_FULL_TOL);
+  5d. dense_gemm kernel (the 3xTF32 GEMM of the dense products) vs its
+     plain version (f32 torch.matmul, TF32 off) within atol/rtol 1e-4
+     at every served shape (DENSE_SHAPES), ragged shapes (no multiples of
+     the tiles, nor of 4), the tied head's transposed weight view and an A
+     whose rows start off 16-byte boundaries;
   5c. by torch.profiler, the CUDA kernels of one ssd_scan call (its
      passes), of PyTorch's f32 scaled_dot_product_attention (the
      yardstick's backend) and of one Gumbel slab at the zamba2 path's
@@ -311,12 +316,28 @@ with the slots cut into chunks for 0.5 to 4 waves of the card's resident
 pass-1 blocks (``ops.decode_chunk`` takes one): the sweep that set that
 rule.
 
-    python3 chip_smoke.py --measure-xlstm [--parent DIR]
+    python3 chip_smoke.py --measure-dense-gemm
 
-times xlstm-350m's network call at phase 8e's shape (seed 0 weights),
-XLSTM_AB_CALLS calls after a warm one in a fresh process per tree: this
-checkout's and, with ``--parent DIR``, that commit's, in the order parent,
-change, change, parent.
+builds the kernels, runs phase 5d, then times dense_gemm at the served
+shapes beside its bounds (3xTF32: operations at a third of 495 TFLOP/s;
+and at 495), the host time of ``layers.dense`` and of torch.matmul, the
+plain version (f32 torch.matmul on the CUDA cores, also the f32 library
+yardstick) and TF32 torch.matmul (a yardstick of lower precision); every
+K split at each served shape (the sweep behind ``ops.split_k``'s model);
+and the kernel against torch.matmul over rows (the sweep behind
+``layers.DENSE_MIN_ROWS`` and ``DENSE_MIN_MACS``).  Writes
+results/dense_gemm.json.
+
+    python3 chip_smoke.py --measure-paths [--parent DIR]
+
+times one network call of each path of PATHS (text8 at the cells' and
+the main path's shapes, the ranked path's, zamba2's, phase 8c's mixtral,
+xlstm's; seed 0 weights) in a fresh process per tree: this checkout's
+and, with ``--parent DIR``, that commit's, in the order parent, change,
+change, parent.  Per path and tree: ms a call to its synchronize, the
+host's ms to enqueue it, ms a call queued back to back, the dense
+products a call by route, and the widest gap of the trees' logits.
+Writes results/paths.json.
 """
 from __future__ import annotations
 
@@ -330,6 +351,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -350,6 +372,8 @@ from repro_torch.device import full, is_sharded  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_scores import ops as k3_ops  # noqa: E402
 from repro_torch.kernels.decode_scores import ref as k3_ref  # noqa: E402
+from repro_torch.kernels.dense_gemm import ops as k5_ops  # noqa: E402
+from repro_torch.kernels.dense_gemm import ref as k5_ref  # noqa: E402
 from repro_torch.kernels.dndm_update import ops as k1_ops  # noqa: E402
 from repro_torch.kernels.dndm_update import ref as k1_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as k2_ops  # noqa: E402
@@ -362,6 +386,7 @@ from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import frontend as frontend_lib  # noqa: E402
+from repro_torch.models import layers as layers_lib  # noqa: E402
 from repro_torch.models import mamba2 as mamba2_lib  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.config import moe_pattern  # noqa: E402
@@ -376,9 +401,9 @@ from repro_torch.training import (AdamW, init_state,  # noqa: E402
 
 # H100 SXM data sheet (dense): HBM rate, f32 rate outside the tensor
 # cores and TF32 rate of the tensor cores, at the full 700 W power limit.
-# The tensor-core kernels (flash_attention, ssd_scan) split each f32
-# product in three TF32 products (3xTF32), so their f32-accurate rate is a
-# third of the TF32 rate.
+# The tensor-core kernels (flash_attention, ssd_scan, dense_gemm) split
+# each f32 product in three TF32 products (3xTF32), so their f32-accurate
+# rate is a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
@@ -462,8 +487,6 @@ XLSTM_CHUNK = 64
 # the profiled xlstm blocks' device time must match the profiled call's
 # within this share
 PROFILE_SUM_TOL = 0.15
-# --measure-xlstm: timed network calls per process
-XLSTM_AB_CALLS = 10
 
 # decode on the card (phase 8f): DECODE_POS positions of DECODE_B rows
 # through the caches, one token at a time, against forward(causal=True):
@@ -606,6 +629,7 @@ def ptxas_summary(log: str) -> list[str]:
             base = re.search(r"(dndm_update_(?:warp|block)_kernel"
                              r"|decode_scores_(?:warp|block)_kernel"
                              r"|flash_attention_kernel|flash_decode_kernel"
+                             r"|dense_gemm_kernel|dense_gemm_sum_kernel"
                              r"|flash_decode_join"
                              r"|ssd_state_kernel"
                              r"|ssd_carry_kernel|ssd_output_kernel)",
@@ -690,6 +714,188 @@ def device_fields(*readings: tuple[float, float]) -> dict:
     readings of one kernel."""
     return {"device_ms": statistics.median(r[0] for r in readings),
             "host_ms": statistics.median(r[1] for r in readings)}
+
+
+# (M, K, N) of the served dense products by name: dndm-text8 at 32 x 256
+# tokens (both text8 cells), zamba2-2.7b at 4 x 256
+DENSE_SHAPES = {"text8_qkvo": (8192, 768, 768),
+                "text8_gate_up": (8192, 768, 3072),
+                "text8_down": (8192, 3072, 768),
+                "zamba2_in_proj": (1024, 2560, 10448),
+                "zamba2_out_proj": (1024, 5120, 2560),
+                "zamba2_shared_qkvo": (1024, 2560, 2560),
+                "zamba2_shared_gate_up": (1024, 2560, 10240),
+                "zamba2_shared_down": (1024, 10240, 2560),
+                "zamba2_head": (1024, 2560, 32000)}
+# ragged (M, K, N): no multiples of the tiles (128, 128, 32)
+DENSE_RAGGED = ((1000, 200, 100), (129, 36, 132), (1, 8, 4), (300, 1000, 4))
+# unit-scale activations, weights of scale 1 / sqrt(K): the f32 bar of the
+# tensor-core kernels (tests/test_torch_cuda.py)
+DENSE_TOL = 1e-4
+DENSE_ROWS = (16, 32, 64, 128, 256, 512, 768, 1024, 1536, 2048, 4096, 8192)
+# (K, N) of the row sweep; (768, 28) is text8's head
+DENSE_ROW_KN = ((768, 768), (768, 3072), (2560, 2560), (2560, 10448),
+                (768, 28))
+
+
+def dense_inputs(g, M: int, K: int, N: int):
+    a = torch.randn(M, K, generator=g, device="cuda")
+    w = torch.randn(K, N, generator=g, device="cuda") / K ** 0.5
+    return a, w
+
+
+def check_dense_gemm(g) -> dict:
+    """Phase 5d: kernel vs plain (f32, TF32 off) at DENSE_SHAPES and the
+    ragged shapes in both layouts of B; an A off 16-byte rows refused by
+    the wrapper and taken by ``layers.dense``'s plain route; returns the
+    cases, the widest error and, at DENSE_SHAPES, the kernel's and the
+    plain version's widest error from the float64 product."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the plain version must run in f32")
+    cases, worst = [], 0.0
+    for M, K, N in DENSE_SHAPES.values():
+        cases.append(((M, K, N), "row_major", *dense_inputs(g, M, K, N)))
+    for M, K, N in DENSE_RAGGED:
+        a, w = dense_inputs(g, M, K, N)
+        cases.append(((M, K, N), "row_major", a, w))
+        cases.append(((M, K, N), "transposed", a, w.T.contiguous().T))
+        off = torch.randn(M, K + 1, generator=g, device="cuda")[:, 1:]
+        try:
+            k5_ops.dense_gemm(off, w)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"dense_gemm took an A off 16-byte rows "
+                                 f"at {(M, K, N)}")
+        with torch.inference_mode():
+            if not torch.equal(layers_lib.dense(off, w), off @ w):
+                raise AssertionError("dense's plain route != x @ w")
+    vs_f64 = {}
+    for shape, layout, a, w in cases:
+        got = k5_ops.dense_gemm(a, w)
+        want = k5_ref.dense_gemm(a, w)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(got, want, atol=DENSE_TOL, rtol=DENSE_TOL):
+            raise AssertionError(f"dense_gemm != plain at {shape} {layout}: "
+                                 f"max err {err}")
+        if shape in DENSE_SHAPES.values():
+            exact = a.double() @ w.double()
+            vs_f64["x".join(map(str, shape))] = {
+                "kernel": float((got.double() - exact).abs().max()),
+                "plain": float((want.double() - exact).abs().max())}
+    return {"cases": len(cases), "max_err": worst, "vs_f64": vs_f64}
+
+
+def dense_iters(M: int, K: int, N: int) -> int:
+    """Launches per timed run: about 20 ms of the kernel at 100 TFLOP/s."""
+    return max(5, min(200, int(20e-3 * 100e12 / (2 * M * N * K))))
+
+
+def dense_gemm_times(g) -> dict:
+    """dense_gemm at each served shape: device and host ms, the bounds,
+    TFLOP/s, the plain version's and TF32 torch.matmul's device ms."""
+    out = {}
+    for name, (M, K, N) in DENSE_SHAPES.items():
+        a, w = dense_inputs(g, M, K, N)
+        it = dense_iters(M, K, N)
+        flops = 2 * M * N * K
+        kern = device_fields(device_time_ms(lambda: k5_ops.dense_gemm(a, w),
+                                            it))
+        plain, plain_host = device_time_ms(lambda: k5_ref.dense_gemm(a, w),
+                                           it)
+        with torch.inference_mode():
+            dense_host = device_time_ms(lambda: layers_lib.dense(a, w),
+                                        it)[1]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = device_time_ms(lambda: torch.matmul(a, w), it)[0]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        nbytes = 4 * (M * K + K * N + M * N)
+        out[name] = {
+            "shape": [M, K, N], "parts": k5_ops.split_k(
+                M, N, K, torch.cuda.get_device_properties(0)
+                .multi_processor_count), **kern,
+            "tflop_per_s": flops / kern["device_ms"] / 1e9,
+            "bound_ms_tf32x3": max(flops / (TF32_FLOPS / 3),
+                                   nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_ms_tf32": max(flops / TF32_FLOPS,
+                                 nbytes / HBM_BYTES_PER_S) * 1e3,
+            "share_of_tf32x3_bound": max(flops / (TF32_FLOPS / 3),
+                                         nbytes / HBM_BYTES_PER_S) * 1e3
+            / kern["device_ms"],
+            "dense_host_ms": dense_host, "plain_host_ms": plain_host,
+            "plain_ms": plain, "plain_tflop_per_s": flops / plain / 1e9,
+            "library_ms": {"f32_cuda_cores": plain, "tf32": tf32}}
+        print(json.dumps({"dense_gemm_time": {name: out[name]}}), flush=True)
+    return out
+
+
+def dense_parts_sweep(g) -> dict:
+    """Device ms of every K split (1 .. MAX_PARTS) at each served shape,
+    beside the part count ``ops.split_k`` picks."""
+    out = {}
+    pick = k5_ops.split_k
+    try:
+        for name, (M, K, N) in DENSE_SHAPES.items():
+            a, w = dense_inputs(g, M, K, N)
+            ms = {}
+            for parts in range(1, k5_ops.MAX_PARTS + 1):
+                k5_ops.split_k = lambda *_, p=parts: p
+                ms[parts] = device_time_ms(
+                    lambda: k5_ops.dense_gemm(a, w), dense_iters(M, K, N))[0]
+            out[name] = {"ms": ms, "picked": pick(M, N, K, torch.cuda.
+                                                  get_device_properties(0)
+                                                  .multi_processor_count),
+                         "fastest": min(ms, key=ms.get)}
+    finally:
+        k5_ops.split_k = pick
+    return out
+
+
+def dense_rows_sweep(g) -> dict:
+    """The kernel's device ms against torch.matmul's (f32) over rows, at
+    text8's and zamba2's K x N: where the kernel starts to win, and the
+    route ``layers.dense`` takes."""
+    out = {}
+    for K, N in DENSE_ROW_KN:
+        for M in DENSE_ROWS:
+            a, w = dense_inputs(g, M, K, N)
+            kern = device_time_ms(lambda: k5_ops.dense_gemm(a, w), 50)[0]
+            plain = device_time_ms(lambda: torch.matmul(a, w), 50)[0]
+            out[f"{M}x{K}x{N}"] = {
+                "kernel_ms": kern, "matmul_ms": plain,
+                "route": ("kernel" if M >= layers_lib.DENSE_MIN_ROWS and
+                          M * K * N >= layers_lib.DENSE_MIN_MACS
+                          else "matmul")}
+    return out
+
+
+def measure_dense_gemm() -> int:
+    card = gpu_name_and_power()
+    print(card, f"torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    lib = build.library()
+    print(f"kernels: {lib.path.name} ({'built' if lib.built else 'loaded'})"
+          f" in {lib.seconds:.1f} s", flush=True)
+    for line in ptxas_summary(lib.log):
+        if "dense_gemm" in line:
+            print("  " + line, flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    res = {"card": card, "check": check_dense_gemm(g)}
+    print(json.dumps({"dense_gemm_check": res["check"]}), flush=True)
+    res["times"] = dense_gemm_times(g)
+    res["parts"] = dense_parts_sweep(g)
+    print(json.dumps({"dense_parts": res["parts"]}), flush=True)
+    res["rows"] = dense_rows_sweep(g)
+    print(json.dumps({"dense_rows": res["rows"]}), flush=True)
+    out = ROOT / "results" / "dense_gemm.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    return 0
+
 
 
 def check_dndm_update(g) -> tuple[int, int]:
@@ -911,10 +1117,13 @@ KERNELS = {"dndm_update": k1_ops.dndm_update,
            "flash_decode": k2_ops.flash_decode,
            "flash_decode_partials": k2_ops.flash_decode_partials,
            "decode_scores": k3_ops.decode_scores,
-           "ssd_scan": k4_ops.ssd_scan}
+           "ssd_scan": k4_ops.ssd_scan,
+           "dense_gemm": k5_ops.dense_gemm}
 
 
-# a part of each kernel's CUDA name, by wrapper (one kernel per launch)
+# a part of each kernel's CUDA name, by wrapper (one kernel per launch;
+# not dense_gemm: a profile of tens of thousands of its launches loses a
+# few of their events, ranked continuous serving's 3 of 33,390)
 PROFILED_KERNELS = {"dndm_update": "dndm_update_",
                     "flash_attention": "flash_attention_kernel",
                     "decode_scores": "decode_scores_"}
@@ -923,11 +1132,29 @@ PROFILED_KERNELS = {"dndm_update": "dndm_update_",
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    layers_lib.dense.matmul_calls = 0
 
 
 def read_counts(engine) -> dict:
+    """The kernels' launches, the dense products that took the plain
+    route (``dense_matmul``) and the engine's network calls, since
+    ``reset_counts``."""
     return {**{k: fn.launches for k, fn in KERNELS.items()},
+            "dense_matmul": layers_lib.dense.matmul_calls,
             "network_calls": engine.network_calls}
+
+
+def check_dense_routes(counts: dict, calls: int, where: str) -> None:
+    """Every network call makes the same dense products, each by one
+    route: the kernel's launches and the plain route's calls add up to a
+    whole number a call.  (Which route a product takes depends on its
+    rows, so a continuous path's split between them varies from call to
+    call.)"""
+    products = counts["dense_gemm"] + counts["dense_matmul"]
+    if calls and products % calls:
+        raise AssertionError(f"{where}: {counts['dense_gemm']} dense_gemm "
+                             f"launches and {counts['dense_matmul']} plain "
+                             f"products over {calls} calls")
 
 
 def main_path(arch: str = "dndm-text8", n_req: int = MAIN_REQUESTS,
@@ -961,7 +1188,8 @@ def per_call_launches(cfg, decode: str) -> dict:
     one attention per attention-family block, two scans (forward and
     flipped) per bidirectional Mamba-2 block."""
     pattern = cfg.block_pattern
-    want = {k: 0 for k in KERNELS}
+    # dense_gemm's launches depend on each call's rows: check_dense_routes
+    want = {k: 0 for k in KERNELS if k != "dense_gemm"}
     want[decode] = 1
     want["flash_attention"] = sum(k in ("attn", "swa", "shared_attn", "moe")
                                   for k in pattern)
@@ -1020,6 +1248,7 @@ def check_main_path(model, sched, done, counts, n_req: int = MAIN_REQUESTS,
         if counts[k] != per * total_nfe:
             raise AssertionError(f"{k} launched {counts[k]} times, expected "
                                  f"{per} x {total_nfe} network calls")
+    check_dense_routes(counts, total_nfe, cfg.name)
     return {"batches": len(batches), "timed_nfe": timed_nfe,
             "warmup_nfe": warmup_nfe, "total_nfe": total_nfe,
             "timed_wall_s": timed_wall}
@@ -1153,6 +1382,7 @@ def check_mt_path(model, sched, done, counts) -> dict:
     if counts["dndm_update"] != 0 or counts["ssd_scan"] != 0:
         raise AssertionError("the ranked path launched dndm_update or "
                              "ssd_scan")
+    check_dense_routes(counts, total_nfe, "the ranked path")
     prefix_lens = sorted(len(r.prefix) for r in done.values())
     return {"nfe": nfe, "total_nfe": total_nfe, "timed_wall_s": timed_wall,
             "prefix_len_min": prefix_lens[0],
@@ -1386,6 +1616,7 @@ def continuous_vs_drain(model, tape, n_len: int, batch: int,
         if counts[k] != per * calls:
             raise AssertionError(f"continuous: {k} launched {counts[k]} "
                                  f"times, expected {per} x {calls} calls")
+    check_dense_routes(counts, calls, "continuous")
     res["continuous"] = {
         "total_calls": calls, "requests": len(done),
         "groups": len(sched._runners),
@@ -1424,6 +1655,7 @@ def continuous_vs_drain(model, tape, n_len: int, batch: int,
             raise AssertionError(f"drain: {k} launched {dcounts[k]} times, "
                                  f"expected {per} x "
                                  f"{dcounts['network_calls']} calls")
+    check_dense_routes(dcounts, dcounts["network_calls"], "drain")
     res["drain"] = {
         "total_calls": timed_nfe, "batches": len(batches),
         "network_calls_with_warmup": dcounts["network_calls"],
@@ -2870,6 +3102,7 @@ def zoo_sweep() -> dict:
             if counts[k] != per * calls:
                 raise AssertionError(f"zoo {arch}: {k} launched {counts[k]}"
                                      f" times, expected {per} x {calls}")
+        check_dense_routes(counts, calls, f"zoo {arch}")
         out[arch] = {"pattern": list(cfg.block_pattern), "nfe": res.nfe,
                      "launches": counts, "wall_s": wall,
                      "frontend": cfg.frontend}
@@ -3691,58 +3924,129 @@ def noise_phase_check(g, libs: dict) -> dict:
     return out
 
 
-# one process of --measure-xlstm: argv = the tree's src, batch, tokens,
-# calls; prints the calls' wall times (ms), each to its synchronize
-XLSTM_CALL_TIMER = """
+# --measure-paths: one network call of each path at its shape, (arch,
+# batch, tokens, source prefix tokens, config changes), seed 0 weights
+PATHS = {"text8_32x256": ("dndm-text8", 32, 256, 0, {}),
+         "text8_8x256": ("dndm-text8", MAIN_BATCH, MAIN_LEN, 0, {}),
+         "ranked_8x128": ("dndm-mt", MT_BATCH, MT_LEN, 56, {}),
+         "zamba2_4x256": ("zamba2-2.7b", ZAMBA_BATCH, ZAMBA_LEN, 0, {}),
+         "mixtral_4x256": ("mixtral-8x7b", MIXTRAL_BATCH, MIXTRAL_LEN, 0,
+                           {"n_layers": MIXTRAL_LAYERS}),
+         "xlstm_4x256": ("xlstm-350m", XLSTM_BATCH, XLSTM_LEN, 0, {})}
+PATH_CALLS = 10
+
+# one process of --measure-paths: argv = the tree's src, the paths as
+# JSON, calls, a directory for each path's logits; prints per path the
+# wall ms of each call to its synchronize, the host ms of each enqueue,
+# the ms a call of PATH_CALLS calls queued back to back, and (on a tree
+# with layers.dense) the kernel's launches and the plain route's calls a
+# call
+PATH_CALL_TIMER = """
 import json, sys, time
 import torch
 sys.path.insert(0, sys.argv[1])
 import repro_torch.configs as configs_lib
+from repro_torch.models import layers
+from repro_torch.models.config import moe_pattern
 from repro_torch.models.model import Model
-B, S, n = (int(a) for a in sys.argv[2:5])
-cfg = configs_lib.get("xlstm-350m")
-fn = Model(cfg, device="cuda", seed=0).denoise_fn()
-g = torch.Generator(device="cuda").manual_seed(1)
-tok = torch.randint(0, cfg.vocab_size - 1, (B, S), generator=g,
-                    device="cuda", dtype=torch.int32)
-t = torch.rand(B, generator=g, device="cuda")
-ms = []
-with torch.inference_mode():
-    for _ in range(1 + n):
+paths, n, out = json.loads(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+dense = getattr(layers, "dense", None)
+res = {}
+for name, (arch, B, S, P, change) in paths.items():
+    if "n_layers" in change:            # a MoE config's first layers
+        change = {**change, "block_pattern": moe_pattern(change["n_layers"])}
+    cfg = configs_lib.get(arch).replace(attn_impl="pallas", **change)
+    model = Model(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size - 1, (B, S), generator=g,
+                        device="cuda", dtype=torch.int32)
+    t = torch.rand(B, generator=g, device="cuda")
+    cond = ({"prefix_tokens": torch.randint(
+        0, cfg.vocab_size - 1, (B, P), generator=g, device="cuda",
+        dtype=torch.int32)} if P else None)
+    fn = model.denoise_fn()
+    r = {"ms": [], "host_ms": []}
+    with torch.inference_mode():
+        torch.save(fn(tok, t, cond).cpu(), f"{out}/{name}.pt")
+        fn(tok, t, cond)
         torch.cuda.synchronize()
+        if dense is not None:
+            from repro_torch.kernels.dense_gemm import ops
+            l0, m0 = ops.dense_gemm.launches, dense.matmul_calls
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn(tok, t, cond)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            r["ms"].append(1e3 * (time.perf_counter() - t0))
+            r["host_ms"].append(1e3 * (t1 - t0))
+        if dense is not None:
+            r["dense_gemm_per_call"] = (ops.dense_gemm.launches - l0) / n
+            r["dense_matmul_per_call"] = (dense.matmul_calls - m0) / n
         t0 = time.perf_counter()
-        fn(tok, t, None)
+        for _ in range(n):
+            fn(tok, t, cond)
         torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
-print(json.dumps({"ms": ms[1:]}))
+        r["queued_ms"] = 1e3 * (time.perf_counter() - t0) / n
+    res[name] = r
+    del model, fn
+    torch.cuda.empty_cache()
+print(json.dumps(res))
 """
 
 
-def measure_xlstm(parent: Path | None) -> int:
-    """--measure-xlstm: xlstm-350m's network call timed in a fresh process
-    per tree (this checkout, and with ``parent`` that tree, in the order
-    parent, change, change, parent); the medians per process and per
-    tree."""
-    print(gpu_name_and_power(), flush=True)
+def measure_paths(parent: Path | None) -> int:
+    """--measure-paths: one network call of each of PATHS, timed in a fresh
+    process per tree (this checkout, and with ``parent`` that tree, in the
+    order parent, change, change, parent); per path and tree the median
+    ms, host ms and queued ms a call of both processes, the change's
+    dense products a call by route, and the widest gap of the two trees'
+    logits."""
+    card = gpu_name_and_power()
+    print(card, flush=True)
     order = ([("parent", parent), ("change", ROOT), ("change", ROOT),
               ("parent", parent)] if parent is not None
              else [("change", ROOT)])
     runs: dict[str, list] = {}
-    for name, tree in order:
-        r = subprocess.run(
-            [sys.executable, "-c", XLSTM_CALL_TIMER, str(tree / "src"),
-             str(XLSTM_BATCH), str(XLSTM_LEN), str(XLSTM_AB_CALLS)],
-            capture_output=True, text=True, cwd=tree)
-        if r.returncode:
-            raise RuntimeError(f"{name} ({tree}): {r.stderr[-2000:]}")
-        ms = json.loads(r.stdout.strip().splitlines()[-1])["ms"]
-        runs.setdefault(name, []).append(ms)
-        print(f"xlstm network call, {name}: median "
-              f"{statistics.median(ms):.2f} ms of {len(ms)}", flush=True)
-    print(json.dumps({"xlstm_network_call_ms": {
-        name: {"median": statistics.median(sum(r, [])),
-               "process_medians": [statistics.median(m) for m in r],
-               "ms": r} for name, r in runs.items()}}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, tree) in enumerate(order):
+            logits = Path(tmp) / f"{name}{i}"
+            logits.mkdir()
+            r = subprocess.run(
+                [sys.executable, "-c", PATH_CALL_TIMER, str(tree / "src"),
+                 json.dumps(PATHS), str(PATH_CALLS), str(logits)],
+                capture_output=True, text=True, cwd=tree)
+            if r.returncode:
+                raise RuntimeError(f"{name} ({tree}): {r.stderr[-3000:]}")
+            res = json.loads(r.stdout.strip().splitlines()[-1])
+            runs.setdefault(name, []).append((logits, res))
+            print(json.dumps({"paths_process": {name: res}}), flush=True)
+        out = {"card": card}
+        for path in PATHS:
+            rec = {}
+            for name, rs in runs.items():
+                rec[name] = {k: statistics.median(sum((r[path][k]
+                                                       for _, r in rs), []))
+                             for k in ("ms", "host_ms")}
+                rec[name]["queued_ms"] = statistics.median(
+                    r[path]["queued_ms"] for _, r in rs)
+                rec[name]["process_medians_ms"] = [
+                    statistics.median(r[path]["ms"]) for _, r in rs]
+                for k in ("dense_gemm_per_call", "dense_matmul_per_call"):
+                    if k in rs[0][1][path]:
+                        rec[name][k] = rs[0][1][path][k]
+            if parent is not None:
+                a = torch.load(runs["parent"][0][0] / f"{path}.pt")
+                b = torch.load(runs["change"][0][0] / f"{path}.pt")
+                rec["logits_max_gap"] = float((a - b).abs().max())
+                rec["logits_max_abs"] = float(a.abs().max())
+                rec["change_ms_share"] = (rec["change"]["ms"]
+                                          / rec["parent"]["ms"])
+            out[path] = rec
+            print(json.dumps({"path_call": {path: rec}}), flush=True)
+    dest = ROOT / "results" / "paths.json"
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    dest.write_text(json.dumps(out, indent=1))
     return 0
 
 
@@ -3777,10 +4081,12 @@ def main() -> int:
               if "--parent" in sys.argv else None)
     if "--measure-decode" in sys.argv:
         return measure_decode(parent)
-    if "--measure-xlstm" in sys.argv:
-        return measure_xlstm(parent)
+    if "--measure-paths" in sys.argv:
+        return measure_paths(parent)
     if "--measure-flash-decode" in sys.argv:
         return measure_flash_decode_chunks()
+    if "--measure-dense-gemm" in sys.argv:
+        return measure_dense_gemm()
     # 1. the card
     print(gpu_name_and_power(), flush=True)
     if torch.backends.cuda.matmul.allow_tf32:
@@ -3834,6 +4140,11 @@ def main() -> int:
           f"{k4_check['max_err_f32']:.3g}, bf16 "
           f"{k4_check['max_err_bf16']:.3g}; full width "
           f"{k4_check['full']}", flush=True)
+    # 5d. dense_gemm vs plain
+    k5_check = check_dense_gemm(g)
+    print(f"dense_gemm: {k5_check['cases']} cases within {DENSE_TOL} of "
+          f"the plain f32 product; max err {k5_check['max_err']:.3g}",
+          flush=True)
     dev_kernels = device_kernel_lists(g)
     for name, ks in dev_kernels.items():
         print(f"{name}: {len(ks)} CUDA kernel(s) per call: "
@@ -4032,6 +4343,7 @@ def main() -> int:
     tz = measure_zamba(g)
     tfd = measure_flash_decode(g)
     t50304, _ = dndm_update_times(g, XLSTM_BATCH, XLSTM_LEN, 50304, XLSTM_T)
+    tdg = dense_gemm_times(g)
     lap("kernel_times")
     kernels = [
         {"name": "dndm_update", "route": "cuda",
@@ -4102,6 +4414,35 @@ def main() -> int:
          "max_abs_err": max(k4_check["max_err_f32"],
                             k4_check["full"]["vs_chunked"]),
          **tz["ssd_scan"]},
+        {"name": "dense_gemm", "route": "cuda",
+         "source": "src/repro_torch/csrc/dense_gemm.cu",
+         "replaces": "none: the JAX package leaves x @ W to XLA",
+         "launches": counts["dense_gemm"],
+         "per_call": {
+             name: {"kernel": c["dense_gemm"] / c["network_calls"],
+                    "plain": c["dense_matmul"] / c["network_calls"]}
+             for name, c in (("text8", counts), ("ranked", mt_counts),
+                             ("zamba2_trained", z_counts),
+                             ("mixtral", mx_counts), ("xlstm", xl_counts))},
+         "launches_continuous": {
+             "text8": cont_text8["continuous"]["launches"]["dense_gemm"],
+             "ranked": cont_ranked["continuous"]["launches"]["dense_gemm"]},
+         "plain_continuous": {
+             "text8": cont_text8["continuous"]["launches"]["dense_matmul"],
+             "ranked":
+             cont_ranked["continuous"]["launches"]["dense_matmul"]},
+         "launches_training": sv["launches"]["dense_gemm"],
+         "launches_training_steps": {
+             k: r["launches"]["dense_gemm"] for k, r in train.items()},
+         "launches_zamba2_trained": z_counts["dense_gemm"],
+         "launches_mixtral": mx_counts["dense_gemm"],
+         "launches_zoo": zoo_launches("dense_gemm"),
+         "launches_xlstm": xl_counts["dense_gemm"],
+         "launches_decode": sum(r["launches"]["dense_gemm"]
+                                for r in [*decode.values(),
+                                          *(long_dec[k] for k, _ in
+                                            LONG_DECODE_SHAPES)]),
+         "max_abs_err": k5_check["max_err"], "at_served_shapes": tdg},
     ]
     main_line = {
         "main_path": "dndm-text8 full width, dndm T=1000, absorbing, sample",

@@ -1,5 +1,6 @@
 // Building blocks shared by the tensor-core kernels (flash_attention.cu,
-// ssd_scan.cu): the 3xTF32 split, mma.sync m16n8k8 in TF32, cp.async.
+// ssd_scan.cu, dense_gemm.cu): the 3xTF32 split, mma.sync m16n8k8 in
+// TF32, cp.async.
 //
 // 3xTF32.  A TF32 operand keeps 10 of f32's 23 mantissa bits, which is
 // not enough for the port's f32 bars (one TF32 pass misses them at

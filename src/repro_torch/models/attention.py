@@ -37,7 +37,8 @@ from repro_torch.kernels.flash_attention.ref import mask_bias as _mask_bias
 from repro_torch.kernels.flash_attention.ref import repeat_kv as _repeat_kv
 from repro_torch.kernels.flash_attention.ref import ring_bias
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, rope_freqs
+from repro_torch.models.layers import (apply_rope, dense, dense_init,
+                                      rope_freqs)
 
 __all__ = ["Attention", "NEG"]
 
@@ -113,9 +114,9 @@ class Attention(nn.Module):
     def _qkv(self, x, positions):
         """q, k (RoPE at ``positions``, (S,)) and v of x (B, S, d)."""
         cfg = self.cfg
-        q = self._split_heads(x @ self.wq, cfg.n_heads)
-        k = self._split_heads(x @ self.wk, cfg.n_kv_heads)
-        v = self._split_heads(x @ self.wv, cfg.n_kv_heads)
+        q = self._split_heads(dense(x, self.wq), cfg.n_heads)
+        k = self._split_heads(dense(x, self.wk), cfg.n_kv_heads)
+        v = self._split_heads(dense(x, self.wv), cfg.n_kv_heads)
         cos, sin = rope_freqs(cfg.hd, cfg.rope_theta, positions)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -136,7 +137,7 @@ class Attention(nn.Module):
         S = x.shape[1]
         q, k, v = self._qkv(x, torch.arange(S, device=x.device))
         y = self._attend(q, k, v, causal=causal, window=window)
-        return self._merge_heads(y) @ self.wo
+        return dense(self._merge_heads(y), self.wo)
 
     def init_cache(self, batch: int, max_seq: int, window: int,
                    dtype) -> dict:
@@ -156,7 +157,7 @@ class Attention(nn.Module):
         q, k_new, v_new = self._qkv(x, torch.arange(pos, pos + 1,
                                                      device=x.device))
         y = self._decode_attend(q, k_new, v_new, cache, pos, window)
-        return self._merge_heads(y) @ self.wo
+        return dense(self._merge_heads(y), self.wo)
 
     def _decode_attend(self, q, k_new, v_new, cache: dict, pos: int,
                        window: int) -> torch.Tensor:

@@ -1,10 +1,11 @@
-"""Shared neural building blocks: norms, RoPE, MLPs, time embeddings.
+"""Shared neural building blocks: dense products, norms, RoPE, MLPs, time
+embeddings.
 
 Dense weights are stored as in the JAX package, ``(d_in, d_out)``, and
-applied as ``x @ W``, so JAX checkpoints load unchanged.  Initialization
-draws from an explicit ``torch.Generator``: a truncated normal on
-[-2, 2] scaled by ``scale / sqrt(d_in)``, the scheme of
-``repro.models.layers.dense_init``.
+applied as ``x @ W`` through :func:`dense`, so JAX checkpoints load
+unchanged.  Initialization draws from an explicit ``torch.Generator``: a
+truncated normal on [-2, 2] scaled by ``scale / sqrt(d_in)``, the scheme
+of ``repro.models.layers.dense_init``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,75 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch import obs
+from repro_torch.kernels.dense_gemm import ops as gemm_ops
+
+# The kernel takes an f32 product on the card from DENSE_MIN_ROWS rows and
+# DENSE_MIN_MACS multiply-adds (rows x K x N) up; below either, PyTorch's
+# f32 GEMM serves it.  Both bounds come from chip_smoke.py
+# --measure-dense-gemm on an H100: its row sweep (16 to 8192 rows at K x N
+# = 768 x 768, 768 x 3072, 2560 x 2560, 2560 x 10448 and 768 x 28) and the
+# host time a product takes through this function against torch.matmul's.
+# Under 128 rows the weight's bytes, not the operations, bound the product
+# and the kernel's 128-row tile is mostly padding: it loses on the device
+# (2560 x 10448 at 64 rows: 0.096 against 0.086 ms).  Above them its device
+# time saved has to pay for its wrapper's host time, 10-20 us a product
+# more than torch.matmul's, which paces a host-bound call (the ranked
+# path's): up to 1.2e9 multiply-adds the sweep saves at most 19 us (768 x
+# 768 at 2048 rows, 768 x 3072 at 512), from 1.7e9 up 37 us and more (2560
+# x 2560 at 256 rows); DENSE_MIN_MACS, 1.6e9, lies between.  A fixed rule
+# of the shape.  Every product of the served cells (text8's 8192 rows but
+# its 28-wide head, zamba2's 1024) lies above both; decode steps and the
+# time MLP (a row a sequence) lie below.
+DENSE_MIN_ROWS = 128
+DENSE_MIN_MACS = 3 << 29
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., d_in) and a weight w (d_in, d_out), or a
+    transposed view of one (the tied head's ``embed.T``).
+
+    On the card, with no gradient being recorded through either operand,
+    no dispatch mode on (a mode such as ``FlopCounterMode`` or
+    ``FakeTensorMode`` sees the plain op), at least ``DENSE_MIN_ROWS`` rows
+    and ``DENSE_MIN_MACS`` multiply-adds, and operands the kernel takes as
+    they lie (``dense_gemm.ops.layout``: both f32, x contiguous or 2-D,
+    16-byte aligned rows), the product runs in the 3xTF32 tensor-core
+    kernel (``kernels/dense_gemm``), which reads x's leading dims as rows.
+    Everything else is ``x @ w``: CPU tensors (so the CPU results are the
+    plain product's, bit for bit), bf16, training, tensor subclasses
+    (DTensor), unaligned operands and small products.  On the card each
+    product is counted by route (``dense.products``, labels ``route``
+    "kernel" or "matmul") with telemetry on; ``dense.matmul_calls`` counts
+    the plain route's calls on every device."""
+    if (x.is_cuda and type(x) is torch.Tensor
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad))
+            and torch._C._len_torch_dispatch_stack() == 0):
+        k = x.shape[-1]
+        rows = x.numel() // k if k else 0
+        if (rows >= DENSE_MIN_ROWS
+                and rows * k * w.shape[-1] >= DENSE_MIN_MACS):
+            lay = gemm_ops.layout(x, w)
+            if lay is not None:
+                y = gemm_ops.run(x, w, *lay)
+                _count("kernel")
+                return y
+    dense.matmul_calls += 1
+    if x.is_cuda:
+        _count("matmul")
+    return x @ w
+
+
+dense.matmul_calls = 0
+
+
+def _count(route: str) -> None:
+    if obs.enabled():
+        obs.counter("dense.products",
+                    "dense products on the card by route, once per "
+                    "call").inc(route=route)
 
 
 def truncated_normal(generator: torch.Generator, shape: tuple[int, ...],
@@ -92,10 +162,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mlp_type == "swiglu":
-            h = F.silu(x @ self.gate) * (x @ self.up)
+            h = F.silu(dense(x, self.gate)) * dense(x, self.up)
         else:
-            h = F.gelu(x @ self.up, approximate="tanh")
-        return h @ self.down
+            h = F.gelu(dense(x, self.up), approximate="tanh")
+        return dense(h, self.down)
 
 
 # ---------------- Diffusion time embedding ----------------
@@ -123,5 +193,5 @@ class TimeEmbed(nn.Module):
         feats = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
         if feats.shape[-1] < self.d:
             feats = F.pad(feats, (0, self.d - feats.shape[-1]))
-        h = F.silu(feats.to(self.w1.dtype) @ self.w1)
-        return h @ self.w2
+        h = F.silu(dense(feats.to(self.w1.dtype), self.w1))
+        return dense(h, self.w2)

@@ -39,7 +39,7 @@ from torch import nn
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, dense_init
+from repro_torch.models.layers import RMSNorm, dense, dense_init
 
 
 def a_log_linspace(H: int) -> np.ndarray:
@@ -105,13 +105,13 @@ class Mamba2(nn.Module):
 
     def _split(self, u):
         d_in, N = self.cfg.d_inner, self.cfg.ssm_state
-        zxbcdt = u @ self.in_proj
+        zxbcdt = dense(u, self.in_proj)
         return torch.split(zxbcdt, [d_in, d_in + 2 * N, self.cfg.ssm_heads],
                            dim=-1)
 
     def _post(self, y, z):
         """Gated RMSNorm, then the output projection."""
-        return self.norm(y * F.silu(z)) @ self.out_proj
+        return dense(self.norm(y * F.silu(z)), self.out_proj)
 
     def _one_direction(self, u: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -25,8 +25,12 @@ While a torch profiler records, each call of the samplers' denoiser is a
 ``model.forward`` layer span and each block of the stack a ``model.block``
 span under it, with the block's ``kind`` (``obs.layer_span``).
 
-Float32 products stay float32 on the card: the port relies on PyTorch's
-default ``torch.backends.cuda.matmul.allow_tf32 == False``.
+Float32 products keep f32 accuracy on the card.  The dense products
+(``layers.dense``) of a forward on the card take the 3xTF32 tensor-core
+kernel (``kernels/dense_gemm``) from ``layers.DENSE_MIN_ROWS`` rows and
+``layers.DENSE_MIN_MACS`` multiply-adds up; the rest go to PyTorch's f32
+GEMM, for which the port keeps
+PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 == False``.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from repro_torch import device as device_lib
 from repro_torch import obs
 from repro_torch.models import blocks, frontend
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, TimeEmbed, dense_init
+from repro_torch.models.layers import RMSNorm, TimeEmbed, dense, dense_init
 
 
 class Model(nn.Module):
@@ -100,7 +104,7 @@ class Model(nn.Module):
                 h, aux = self._superblock(j, h, causal)
             terms += aux
         h = self.ln_f(h)
-        logits = h @ (self.embed.T if self.head is None else self.head)
+        logits = dense(h, self.embed.T if self.head is None else self.head)
         if not return_aux:
             return logits
         zero = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -163,7 +167,8 @@ class Model(nn.Module):
         for kind, blk, c in zip(self.cfg.block_pattern, self.blocks, cache):
             h = self._block(kind, blk).decode(h, c, pos)
         h = self.ln_f(h)
-        return h @ (self.embed.T if self.head is None else self.head), cache
+        return (dense(h, self.embed.T if self.head is None else self.head),
+                cache)
 
     def _block(self, kind: str, blk: nn.Module) -> nn.Module:
         return self.shared if kind == "shared_attn" else blk

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.dense_gemm import ops as k5_ops
+from repro_torch.kernels.dense_gemm import ref as k5_ref
 from repro_torch.kernels.decode_scores import ops as k3_ops
 from repro_torch.kernels.decode_scores import ref as k3_ref
 from repro_torch.kernels.dndm_update import ops as k1_ops
@@ -18,6 +20,7 @@ from repro_torch.kernels.flash_attention import ops as k2_ops
 from repro_torch.kernels.flash_attention import ref as k2_ref
 from repro_torch.kernels.ssd_scan import ops as k4_ops
 from repro_torch.kernels.ssd_scan import ref as k4_ref
+from repro_torch.models import layers
 
 pytestmark = pytest.mark.cuda
 
@@ -375,6 +378,183 @@ def test_ssd_scan_rejects_misaligned_f32_views(gen, which):
     with pytest.raises(ValueError, match="16-byte"):
         k4_ops.ssd_scan(*args.values(), chunk=16)
     assert k4_ops.ssd_scan.launches == before
+
+
+# (M, K, N) of the served dense products: text8 at 32 x 256 tokens (q, k,
+# v, o; gate, up; down), zamba2 at 4 x 256 (Mamba-2 in_proj, out_proj; the
+# shared block's q, k, v, o, gate, up, down; the head)
+DENSE_SHAPES = [(8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768),
+                (1024, 2560, 10448), (1024, 5120, 2560), (1024, 2560, 2560),
+                (1024, 2560, 10240), (1024, 10240, 2560), (1024, 2560, 32000)]
+# Activations of unit scale (an RMSNorm's output) and weights of the
+# cells' scale, 1 / sqrt(K) (dense_init), so outputs are of unit scale.
+# 3xTF32 keeps each product within 2^-21 of f32's; the kernel and the
+# plain f32 GEMM sum K terms in different orders, which alone moves a sum
+# of K = 10240 unit-scale terms by about 1e-5.  1e-4 is the f32 bar of the
+# tensor-core kernels here (flash); one TF32 pass misses it
+# (tests/test_torch_tf32.py).
+DENSE_TOL = 1e-4
+
+
+def _dense_inputs(gen, M, K, N):
+    a = torch.randn(M, K, generator=gen, device="cuda")
+    w = torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
+    return a, w
+
+
+def _no_tf32():
+    if torch.backends.cuda.matmul.allow_tf32:
+        pytest.fail("the plain version must run in f32 (TF32 off)")
+
+
+@pytest.mark.parametrize("M,K,N", DENSE_SHAPES)
+def test_dense_gemm_kernel_matches_plain(gen, M, K, N):
+    _no_tf32()
+    a, w = _dense_inputs(gen, M, K, N)
+    before = k5_ops.dense_gemm.launches
+    got = k5_ops.dense_gemm(a, w)
+    assert k5_ops.dense_gemm.launches == before + 1
+    assert got.shape == (M, N) and got.is_contiguous()
+    torch.testing.assert_close(got, k5_ref.dense_gemm(a, w), atol=DENSE_TOL,
+                               rtol=DENSE_TOL)
+
+
+@pytest.mark.parametrize("K", [768, 3072, 5120, 10240])
+def test_dense_gemm_kernel_is_as_accurate_as_f32(gen, K):
+    """Against the float64 product, at the served depths: the kernel's
+    error within 3x the plain f32 GEMM's.  The tensor cores' accumulator
+    rounds toward zero; summed through all of K it would drift some 200x
+    past f32's error at K = 10240, which the kernel's promotion of each
+    pair of K tiles (64 deep) to a CUDA-core sum prevents."""
+    _no_tf32()
+    a, w = _dense_inputs(gen, 512, K, 256)
+    exact = a.double() @ w.double()
+    err = (k5_ops.dense_gemm(a, w).double() - exact).abs().max().item()
+    plain = (k5_ref.dense_gemm(a, w).double() - exact).abs().max().item()
+    assert err <= 3 * plain, (err, plain)
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 200, 100), (129, 36, 132),
+                                   (1, 8, 4), (300, 1000, 4), (257, 96, 28),
+                                   (130, 4, 132)])
+@pytest.mark.parametrize("layout", ["row_major", "transposed"])
+def test_dense_gemm_kernel_masks_ragged_edges(gen, M, K, N, layout):
+    """M, N and K that are no multiples of the tiles (128, 128, 32), with
+    B stored or as a transposed view."""
+    _no_tf32()
+    a, w = _dense_inputs(gen, M, K, N)
+    if layout == "transposed":
+        w = w.T.contiguous().T
+        assert w.stride(0) == 1
+    got = k5_ops.dense_gemm(a, w)
+    torch.testing.assert_close(got, k5_ref.dense_gemm(a, w), atol=DENSE_TOL,
+                               rtol=DENSE_TOL)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+def test_dense_gemm_kernel_splits_k(gen, parts, monkeypatch):
+    """Every count of K parts gives the product (zamba2's out_proj shape,
+    K 5120, and a ragged one); the rule's own choice is covered above."""
+    _no_tf32()
+    monkeypatch.setattr(k5_ops, "split_k", lambda *_: parts)
+    for M, K, N in ((1024, 5120, 2560), (300, 1000, 132)):
+        a, w = _dense_inputs(gen, M, K, N)
+        torch.testing.assert_close(k5_ops.dense_gemm(a, w),
+                                   k5_ref.dense_gemm(a, w), atol=DENSE_TOL,
+                                   rtol=DENSE_TOL)
+
+
+@pytest.mark.parametrize("V", [28, 32000, 50257])
+def test_dense_takes_the_tied_head_and_leading_dims(gen, V):
+    """``layers.dense`` as the tied head calls it, h (B, S, d) @ embed.T,
+    at text8's, zamba2's and GPT-2's vocabularies, over 32 x 256 tokens:
+    the kernel reads the transposed view; the output keeps the leading
+    dims.  text8's head (8192 x 768 x 28, below ``DENSE_MIN_MACS``) takes
+    the plain route."""
+    _no_tf32()
+    h = torch.randn(32, 256, 768, generator=gen, device="cuda")
+    embed = torch.randn(V, 768, generator=gen, device="cuda") / 768 ** 0.5
+    kernel = 32 * 256 * 768 * V >= layers.DENSE_MIN_MACS
+    before = k5_ops.dense_gemm.launches
+    with torch.inference_mode():
+        got = layers.dense(h, embed.T)
+    assert k5_ops.dense_gemm.launches == before + kernel
+    assert got.shape == (32, 256, V)
+    torch.testing.assert_close(got, h @ embed.T, atol=DENSE_TOL,
+                               rtol=DENSE_TOL)
+
+
+@pytest.mark.parametrize("case", ["kernel", "cpu", "bf16", "grad", "small",
+                                  "few_macs", "unaligned"])
+def test_dense_routes_and_counts(gen, case):
+    """The kernel for f32 on the card at ``DENSE_MIN_ROWS`` rows and
+    ``DENSE_MIN_MACS`` multiply-adds and more, with nothing recording a
+    gradient; ``x @ w`` for CPU tensors, bf16, autograd, fewer rows, fewer
+    multiply-adds and rows off 16-byte boundaries, counted in
+    ``dense.matmul_calls``."""
+    rows = layers.DENSE_MIN_ROWS
+    x = torch.randn(2, 512, 1024, generator=gen, device="cuda")
+    w = torch.randn(1024, 2048, generator=gen, device="cuda") / 32
+    assert 1024 * 1024 * 2048 >= layers.DENSE_MIN_MACS
+    if case == "cpu":
+        x, w = x.cpu(), w.cpu()
+    elif case == "bf16":
+        x, w = x.bfloat16(), w.bfloat16()
+    elif case == "grad":
+        w.requires_grad_(True)
+    elif case == "small":
+        x = torch.randn(rows - 1, 8192, generator=gen, device="cuda")
+        w = torch.randn(8192, 2048, generator=gen, device="cuda") / 90
+        assert (rows - 1) * 8192 * 2048 >= layers.DENSE_MIN_MACS
+    elif case == "few_macs":
+        w = w[:, :96]
+    elif case == "unaligned":
+        x = torch.randn(2, 512, 1025, generator=gen, device="cuda")[..., 1:]
+    before = (k5_ops.dense_gemm.launches, layers.dense.matmul_calls)
+    y = layers.dense(x, w)
+    kernel = case == "kernel"
+    assert (k5_ops.dense_gemm.launches,
+            layers.dense.matmul_calls) == (before[0] + kernel,
+                                           before[1] + (not kernel))
+    assert y.requires_grad == (case == "grad")
+    if kernel:
+        torch.testing.assert_close(y, x @ w, atol=DENSE_TOL, rtol=DENSE_TOL)
+    else:
+        assert torch.equal(y, x @ w)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "rows", "layout",
+                                 "device", "grad", "offset", "odd_k",
+                                 "odd_n"])
+def test_dense_gemm_rejects_what_the_kernel_cannot_take(gen, bad):
+    """Bad input raises before a launch, as do operands off the 16-byte
+    copies' terms: A's rows off 16-byte boundaries, K or a row-major B's N
+    no multiple of 4."""
+    a, w = _dense_inputs(gen, 64, 32, 48)
+    err = (TypeError if bad == "dtype" else
+           RuntimeError if bad == "grad" else ValueError)
+    if bad == "dtype":
+        a, w = a.bfloat16(), w.bfloat16()
+    elif bad == "shape":
+        w = w[:31]
+    elif bad == "rows":
+        a = torch.randn(32, 64, generator=gen, device="cuda").T
+    elif bad == "layout":
+        w = torch.randn(64, 96, generator=gen, device="cuda")[::2, ::2]
+    elif bad == "device":
+        w = w.cpu()
+    elif bad == "offset":
+        a = torch.randn(64, 33, generator=gen, device="cuda")[:, 1:]
+    elif bad == "odd_k":
+        a, w = _dense_inputs(gen, 64, 33, 48)
+    elif bad == "odd_n":
+        a, w = _dense_inputs(gen, 64, 32, 47)
+    else:
+        w.requires_grad_(True)
+    before = k5_ops.dense_gemm.launches
+    with pytest.raises(err):
+        k5_ops.dense_gemm(a, w)
+    assert k5_ops.dense_gemm.launches == before
 
 
 def test_moe_shard_map_on_one_rank_of_nccl(gen, tmp_path):

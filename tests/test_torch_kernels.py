@@ -28,6 +28,8 @@ from repro.kernels.dndm_update import ops as j_dndm
 from repro.kernels.flash_attention import ops as j_flash
 
 from repro_torch.kernels.decode_scores import ops as t_scores
+from repro_torch.kernels.dense_gemm import ops as t_gemm
+from repro_torch.kernels.dense_gemm import ref as t_gemm_ref
 from repro_torch.kernels.decode_scores import ref as t_scores_ref
 from repro_torch.kernels.dndm_update import ops as t_dndm
 from repro_torch.kernels.dndm_update import ref as t_dndm_ref
@@ -304,6 +306,114 @@ def test_dndm_update_rejects_what_the_kernel_cannot_take(bad):
         kw["version"] = 3
     with pytest.raises((ValueError, TypeError)):
         t_dndm.dndm_update(logits, x, tau, 1, **kw)
+
+
+def test_dense_gemm_cpu_path_is_the_plain_product():
+    """A CPU tensor takes ``ref.dense_gemm`` (f32 ``torch.matmul``), a
+    stored weight or a transposed view alike, and launches nothing."""
+    t_gemm.dense_gemm.launches = 0
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((70, 48)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((48, 33)).astype(np.float32))
+    for b in (w, w.T.contiguous().T):
+        assert torch.equal(t_gemm.dense_gemm(a, b), t_gemm_ref.dense_gemm(a, b))
+    assert torch.equal(t_gemm_ref.dense_gemm(a, w), a @ w)
+    assert t_gemm.dense_gemm.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "shape", "rows", "layout",
+                                 "device", "grad"])
+def test_dense_gemm_rejects_what_the_kernel_cannot_take(bad):
+    a, w = torch.randn(16, 8), torch.randn(8, 12)
+    err = (TypeError if bad == "dtype" else
+           RuntimeError if bad == "grad" else ValueError)
+    if bad == "dtype":
+        a = a.double()
+    elif bad == "rank":
+        a = a[None]
+    elif bad == "shape":
+        w = w[:7]
+    elif bad == "rows":
+        a = torch.randn(8, 16).T
+    elif bad == "layout":
+        w = torch.randn(16, 24)[::2, ::2]
+    elif bad == "device":
+        w = w.to("meta")
+    else:
+        w.requires_grad_(True)
+    with pytest.raises(err):
+        t_gemm.dense_gemm(a, w)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("row_major", (64, False, 48)), ("transposed", (64, True, 64)),
+    ("row_stride", (68, False, 48)), ("odd_n_transposed", (64, True, 64)),
+    ("leading_dims", (64, False, 48)), ("leading_dims_strided", None),
+    ("offset", None), ("odd_k", None), ("odd_n", None), ("lda", None),
+    ("ldb", None), ("bf16", None), ("shape", None), ("cols", None)])
+def test_dense_gemm_layout_is_the_kernels_terms(case, want):
+    """``layout``, the test ``layers.dense`` routes by: (a's row stride, B
+    K-major, B's row stride) where the kernel takes the pair as it lies
+    (a's rows at one stride; 16-byte copies: aligned starts, row strides
+    and K multiples of 4, N too where B is row-major), None elsewhere."""
+    a, w = torch.randn(16, 64), torch.randn(64, 48)
+    if case == "leading_dims":
+        a = torch.randn(2, 8, 64)
+    elif case == "leading_dims_strided":
+        a = torch.randn(2, 8, 68)[..., :64]
+    elif case == "transposed":
+        w = torch.randn(48, 64).T
+    elif case == "row_stride":
+        a = torch.randn(16, 68)[:, :64]
+    elif case == "odd_n_transposed":
+        w = torch.randn(47, 64).T
+    elif case == "offset":
+        a = torch.randn(16, 65)[:, 1:]
+    elif case == "odd_k":
+        a, w = torch.randn(16, 62), torch.randn(62, 48)
+    elif case == "odd_n":
+        w = torch.randn(64, 47)
+    elif case == "lda":
+        a = torch.randn(16, 66)[:, :64]
+    elif case == "ldb":
+        w = torch.randn(64, 50)[:, :48]
+    elif case == "bf16":
+        a, w = a.bfloat16(), w.bfloat16()
+    elif case == "shape":
+        w = w[:60]
+    elif case == "cols":
+        a = torch.randn(64, 16).T
+    assert t_gemm.layout(a, w) == want
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (8192, 768, 768), (8192, 768, 3072), (8192, 3072, 768),
+    (1024, 2560, 10448), (1024, 5120, 2560), (1024, 2560, 2560),
+    (1024, 2560, 10240), (1024, 10240, 2560), (1024, 2560, 32000),
+    (128, 768, 768), (5000, 64, 28), (1, 1, 1)])
+def test_dense_gemm_split_rule(M, K, N):
+    """The K split is a fixed function of the shape: 1 .. MAX_PARTS parts,
+    each at least MIN_PART_STEPS steps of K when there are several, never
+    more waves of K steps than one part takes.  Every text8 product (M
+    8192) and zamba2's in_proj, gate/up and head run unsplit; its 160-tile
+    products (N 2560) in 4 parts, the fastest on an H100."""
+    sms = 132
+    tiles = -(-M // t_gemm.TILE_M) * -(-N // t_gemm.TILE_N)
+    steps = -(-K // t_gemm.TILE_K)
+
+    def wave_steps(parts):
+        return -(-tiles * parts // sms) * -(-steps // parts)
+
+    parts = t_gemm.split_k(M, N, K, sms)
+    assert parts == t_gemm.split_k(M, N, K, sms)
+    assert 1 <= parts <= t_gemm.MAX_PARTS
+    if parts > 1:
+        assert steps >= parts * t_gemm.MIN_PART_STEPS
+        assert wave_steps(parts) < wave_steps(1)
+    if M == 8192 and N >= 768 or N in (10448, 10240, 32000):
+        assert parts == 1
+    if M == 1024 and N == 2560:
+        assert parts == 4
 
 
 def _c_entry_points() -> dict[str, int]:

@@ -127,6 +127,29 @@ def test_blocked_unrolled_is_blocked_bitwise(causal):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("shape,tied", [((2, 40, 32), False),
+                                        ((3, 200, 64), False),
+                                        ((300, 48), False),
+                                        ((2, 40, 32), True)])
+def test_dense_on_cpu_tensors_is_the_plain_product_bitwise(shape, tied):
+    """``layers.dense`` on CPU tensors is ``x @ w`` bit for bit (the
+    JAX-parity tests above run through it), above and below the kernel's
+    row threshold, for a stored weight and the tied head's transposed
+    view; each call counts on the plain route."""
+    from repro_torch.kernels.dense_gemm import ops as gemm_ops
+    from repro_torch.models import layers
+    g = torch.Generator().manual_seed(len(shape) + shape[-1])
+    x = torch.randn(shape, generator=g)
+    d = shape[-1]
+    w = (torch.randn(28, d, generator=g).T if tied
+         else torch.randn(d, 3 * d, generator=g))
+    before = (layers.dense.matmul_calls, gemm_ops.dense_gemm.launches)
+    got = layers.dense(x, w)
+    assert torch.equal(got, x @ w)
+    assert (layers.dense.matmul_calls,
+            gemm_ops.dense_gemm.launches) == (before[0] + 1, before[1])
+
+
 def test_mt_prefix_logits_match_jax():
     """dndm-mt with a source prefix: [prefix | x_t], target logits only."""
     jm, params, tm = _pair("dndm-mt", attn_impl="pallas", attn_block_q=16,

@@ -2,18 +2,23 @@
 products (3xTF32), held on the CPU.
 
 ``flash_attention.cu`` and ``ssd_scan.cu`` run their products as
-mma.sync TF32 with f32 accumulation.  A TF32 operand keeps 10 of f32's 23
-mantissa bits.  This file emulates the kernels' arithmetic in numpy:
-operands rounded to TF32 as ``tc::tf32_rna`` in ``csrc/tf32.cuh`` rounds
-them (to nearest, ties away from zero, by integer operations on the
-bits), products of TF32 values (exact in f32) summed in f32.  It holds:
+mma.sync TF32 with f32 accumulation, ``dense_gemm.cu`` as wgmma TF32.  A
+TF32 operand keeps 10 of f32's 23 mantissa bits.  This file emulates the
+kernels' arithmetic in numpy: operands rounded to TF32 as
+``tc::tf32_rna`` in ``csrc/tf32.cuh`` rounds them (to nearest, ties away
+from zero, by integer operations on the bits), products of TF32 values
+(exact in f32) summed in f32.  It holds:
 
 * the 3xTF32 split (big = tf32(a), small = a - big cut to TF32 by the
   tensor cores, which read an operand's top 19 bits; a b ~ small_a big_b
   + big_a small_b + big_a big_b) meets the kernels' f32 bars against
   the plain f32 versions: attention at the text8 and zamba2 head dims
   within atol/rtol 1e-4 (chip_smoke.py, tests/test_torch_cuda.py), the SSD
-  chunk algorithm at the zamba2 shape within 3e-5 (tests/test_torch_cuda.py);
+  chunk algorithm at the zamba2 shape within 3e-5 (tests/test_torch_cuda.py),
+  the dense products at the served depths K within f32's own error of
+  the exact product, where the tensor cores' sums, which round toward
+  zero, join an f32 total every 64 of K (``mm_wgmma``); carried through
+  all of K they miss it;
 * one TF32 pass does not meet them, which is why the kernels take three.
 """
 import numpy as np
@@ -144,3 +149,78 @@ def test_ssd_needs_three_tf32_passes():
     np.testing.assert_allclose(three, want, atol=SSD_TOL, rtol=SSD_TOL)
     assert not np.allclose(one, want, atol=SSD_TOL, rtol=SSD_TOL)
     assert np.abs(one - want).max() > 10 * SSD_TOL
+
+
+# f32-class error of a dense product at the served depths, for unit-scale
+# activations and weights of scale 1 / sqrt(K) (dense_init): the plain f32
+# product itself is 1.3e-6 to 1.8e-6 off the exact one at these K
+# (measured on these inputs), and the card tests hold the kernel to the
+# plain f32 product at 1e-4 (tests/test_torch_cuda.py)
+DENSE_F32_CLASS = 1e-5
+DENSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("K", [768, 3072, 2560, 5120])
+def test_dense_products_need_three_tf32_passes(K):
+    """dense_gemm.cu's arithmetic at text8's depths (768, 3072) and
+    zamba2's (2560, 5120), against the float64 product: 3xTF32 (the
+    split, small products first, f32 sums) within f32-class error, as
+    close as the plain f32 product; one TF32 pass some 1e-3 off, past the
+    card tests' bar and the benchmark's logit limits (2e-4, 5e-4)."""
+    rng = np.random.default_rng(K)
+    a = rng.standard_normal((64, K)).astype(np.float32)
+    w = (rng.standard_normal((K, 128)) / np.sqrt(K)).astype(np.float32)
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    plain = np.abs(a @ w - exact).max()
+    three = np.abs(mm(a, w, 3) - exact).max()
+    one = np.abs(mm(a, w, 1) - exact).max()
+    assert three < DENSE_F32_CLASS and three < 2 * plain
+    assert one > 5 * DENSE_TOL and one > 100 * three
+
+
+def rz32(v: np.ndarray) -> np.ndarray:
+    """float64 -> f32 rounded toward zero."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    return np.where(over, np.nextafter(r, np.float32(0)), r)
+
+
+def mm_wgmma(a: np.ndarray, b: np.ndarray, block: int | None) -> np.ndarray:
+    """a @ b as dense_gemm.cu's tensor cores sum it: per 8 of K three
+    products (small_a big_b, big_a small_b, big_a big_b), each summed
+    exactly and added into an f32 accumulator rounding toward zero; every
+    ``block`` of K the accumulator joins an f32 total rounded to nearest
+    and starts afresh (None: one accumulator through all of K)."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    a_big, b_big = tf32(a), tf32(b)
+    a_small, b_small = truncate(a - a_big), truncate(b - b_big)
+    pairs = [(a_small, b_big), (a_big, b_small), (a_big, b_big)]
+    d = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    total = np.zeros_like(d)
+    for k0 in range(0, a.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        for x, y in pairs:
+            d = rz32(d + x[:, k].astype(np.float64) @ y[k].astype(np.float64))
+        if block and (k0 + 8) % block == 0:
+            total, d = total + d, np.zeros_like(d)
+    return total + d
+
+
+@pytest.mark.parametrize("K", [768, 2560, 5120, 10240])
+def test_dense_products_need_the_promotion(K):
+    """The tensor cores' accumulator rounds toward zero, so a sum carried
+    through all of K drifts: 3e-5 off the float64 product at K = 768, 4e-4
+    at 10240 (the kernel read 3.1e-4 there on an H100 before it promoted).
+    Adding each 64-deep block's sum to an f32 total, as the kernel does,
+    keeps 3xTF32 within f32-class error at every served depth, within 3x
+    the plain f32 product's."""
+    rng = np.random.default_rng(K)
+    a = rng.standard_normal((64, K)).astype(np.float32)
+    w = (rng.standard_normal((K, 64)) / np.sqrt(K)).astype(np.float32)
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    plain = np.abs(a @ w - exact).max()
+    promoted = np.abs(mm_wgmma(a, w, 64) - exact).max()
+    carried = np.abs(mm_wgmma(a, w, None) - exact).max()
+    assert promoted < DENSE_F32_CLASS and promoted < 3 * plain
+    assert carried > DENSE_F32_CLASS and carried > 10 * promoted
