@@ -31,12 +31,11 @@ sys.path[:1] = [str(ROOT / "src"), str(ROOT)]
 import torch  # noqa: E402
 
 from dndmbench import faults, harness, readers, weights  # noqa: E402
-from dndmbench.reference import model as ref_model  # noqa: E402
 
 
-def window(doc, engine, traffic, seed, seconds, device, first):
-    ctx = harness.Context("calibrate", ref_model.expand(doc["model"]),
-                          traffic, device)
+def window(doc, p, engine, traffic, seed, seconds, device, first):
+    ctx = harness.Context("calibrate", p.reference.expand(doc["model"]),
+                          traffic, device, p.work)
     ctx.tap = harness.tap_for(engine, traffic, seed)
     serve = {"open": harness.run_open,
              "closed": harness.run_closed}[traffic["loop"]]
@@ -62,8 +61,9 @@ def main() -> int:
     traffic = harness.traffic_doc(cell["traffic"])
     device = torch.device("cuda:0")
     seeds = [int(s) for s in a.seeds.split(",")]
+    p = harness.parts(doc)
     engine = harness.build_program(doc, traffic,
-                                   harness.subseed(seeds[0], 0), device)
+                                   harness.subseed(seeds[0], 0), device, p)
     if a.fault:
         faults.FAULTS[a.fault](setattr)
     print(json.dumps({"card": torch.cuda.get_device_name(device),
@@ -71,8 +71,8 @@ def main() -> int:
     if a.sweep:
         for i, rate in enumerate(float(r) for r in a.sweep.split(",")):
             tr = dict(traffic, rate_per_s=rate)
-            ctx, out = window(doc, engine, tr, seeds[0], a.seconds, device,
-                              i == 0)
+            ctx, out = window(doc, p, engine, tr, seeds[0], a.seconds,
+                              device, i == 0)
             sched = out["sched"]
             late = [r for r in ctx.requests if "done" not in r]
             print(json.dumps({
@@ -92,21 +92,25 @@ def main() -> int:
         t0 = time.perf_counter()
         if i:
             convert.load_params(engine.model, weights.make(
-                doc["model"], harness.subseed(seed, 0), device))
-        ctx, out = window(doc, engine, traffic, seed, a.seconds, device, i == 0)
+                doc["model"], harness.subseed(seed, 0), device, p.reference))
+        ctx, out = window(doc, p, engine, traffic, seed, a.seconds, device,
+                          i == 0)
         sample, trajs, attempted, failed, counts = harness.trajectories(
             traffic, out, ctx, seed)
         t1 = time.perf_counter()
         check = __import__(f"dndmbench.reference.{traffic['reference_check']}",
                            fromlist=["check"])
-        tree = weights.make(doc["model"], harness.subseed(seed, 0), device)
+        tree = weights.make(doc["model"], harness.subseed(seed, 0), device,
+                            p.reference)
         r = check.check_logits(ctx.tap.kept, tree, doc["model"],
-                               device=device, control=i < a.control)
+                               device=device, control=i < a.control,
+                               reference=p.reference)
         ctx.tap.kept = []
         r = check.check(sample, tree, doc["model"], T=traffic["T"],
                         shared=traffic["shared_tau"], device=device,
                         block_rows=traffic["ref_rows"],
-                        control=i < a.control, readings=r)
+                        control=i < a.control, readings=r,
+                        reference=p.reference)
         del tree
         print(json.dumps({
             "seed": seed, "logit_err": r.logit_err,

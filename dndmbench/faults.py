@@ -7,7 +7,6 @@ from __future__ import annotations
 import torch
 
 from dndmbench import harness, weights
-from dndmbench.reference import model as ref_model
 
 
 def state_unchanged(setattr_):
@@ -77,15 +76,16 @@ def finished_twice(setattr_):
 
 
 def control(setattr_, doc: dict, seed: int, device) -> None:
-    """The control: the reference in the program's place, its products
-    in TF32, on the run's weights."""
+    """The control: the configuration's reference in the program's place,
+    its products in TF32, on the run's weights."""
     from repro_torch.models import model
-    tree = weights.make(doc["model"], harness.subseed(seed, 0), device)
+    ref = harness.parts(doc).reference
+    tree = weights.make(doc["model"], harness.subseed(seed, 0), device, ref)
 
     def denoise_fn(self, cond=None):
         def fn(x, t, c):
-            with ref_model.precision("tf32", device):
-                return ref_model.forward(tree, doc["model"], x, t)
+            with ref.precision("tf32", device):
+                return ref.forward(tree, doc["model"], x, t)
         return fn
     setattr_(model.Model, "denoise_fn", denoise_fn)
 

@@ -11,6 +11,24 @@ The mix's ``loop`` picks how it is served: ``open`` serves arrivals drawn by
 ``metrics/<name>.py`` with ``read(ctx)``, given the :class:`Context`
 below; a reader that finds nothing returns None and the metric is left
 out.
+
+A configuration file (``configs/<name>.json``) holds ``model``, the
+widths as run, and names the parts that depend on its architecture
+(:func:`parts` resolves them); a key left out means the default:
+
+* ``reference``: a module of ``reference/`` (default ``"model"``), the
+  plain forward that draws the weights and decides ``correct``; its
+  interface is in ``reference/__init__.py``;
+* ``work``: a module of ``work/`` (default ``"call"``) whose
+  ``flops(c, rows, N)`` counts the model operations of one network call
+  from the expanded widths ``c``; ``call_mfu`` reads it;
+* ``config_factory``: ``"<module of repro_torch>:<function>"``, which
+  returns the port's ``ModelConfig``; without it ``registry_id`` names an
+  entry of ``repro_torch.configs``.  The reference's expansion of
+  ``model`` is ``.replace``d onto that config.
+
+So an architecture joins the benchmark as new files: its configuration,
+its reference and its work count.
 """
 from __future__ import annotations
 
@@ -23,12 +41,13 @@ import statistics
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from dndmbench import arrivals, weights
-from dndmbench.reference import model as ref_model
 from dndmbench.trace import Profiled, Trace
 
 BENCH = Path(__file__).resolve().parent
@@ -83,6 +102,55 @@ def subseed(seed: int, k: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0] >> 2)
 
 
+class Parts(NamedTuple):
+    """What a configuration file names: its reference and work modules,
+    and the port's config of its widths."""
+    reference: ModuleType
+    work: ModuleType
+    config: object               # repro_torch.models.config.ModelConfig
+
+
+def part_module(kind: str, name: str, bench: Path = BENCH) -> ModuleType:
+    """Module ``name`` of ``bench/<kind>/`` (``kind`` "reference" or
+    "work").  The package's own are imported as ``dndmbench.<kind>.<name>``,
+    so that a reference built on ``reference.model``'s helpers shares its
+    precision switch; a module of another copy of the benchmark is loaded
+    from its file."""
+    if not name.isidentifier():
+        raise ValueError(f"{kind} module {name!r} is not a module name")
+    if bench == BENCH:
+        return importlib.import_module(f"dndmbench.{kind}.{name}")
+    spec = importlib.util.spec_from_file_location(
+        f"dndmbench_{kind}_{name}", bench / kind / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parts(doc: dict, bench: Path = BENCH) -> Parts:
+    """The reference, work module and port config that configuration file
+    ``doc`` names (module docstring)."""
+    from repro_torch import configs as registry
+    ref = part_module("reference", doc.get("reference", "model"), bench)
+    work = part_module("work", doc.get("work", "call"), bench)
+    if "config_factory" in doc:
+        module, fn = doc["config_factory"].split(":")
+        if module.split(".")[0] != "repro_torch":
+            raise ValueError(f"config_factory {doc['config_factory']!r} is "
+                             "not in repro_torch")
+        base = getattr(importlib.import_module(module), fn)()
+    else:
+        base = registry.get(doc["registry_id"])
+    c = ref.expand(doc["model"])
+    fields = {k: v for k, v in c.items()
+              if k not in ("block_unit", "n_super", "d_inner")}
+    fields["block_pattern"] = tuple(c["block_pattern"])
+    cfg = base.replace(**fields)
+    if "d_inner" in c and cfg.d_inner != c["d_inner"]:
+        raise ValueError(f"d_inner {cfg.d_inner} != {c['d_inner']}")
+    return Parts(ref, work, cfg)
+
+
 def percentile(values, q: int) -> float:
     """The q-th percentile, interpolated between order statistics."""
     if len(values) == 1:
@@ -97,6 +165,7 @@ class Context:
     config: dict                 # the configuration's widths, expanded
     traffic: dict
     device: torch.device
+    work: ModuleType | None = None   # the configuration's work module
     setup_s: float = 0.0
     window_s: float = 0.0        # open to close, on the host's clock
     calls: int = 0               # network calls made in the window
@@ -112,21 +181,17 @@ class Context:
 
 # ---------------------------------------------------------------- program
 
-def build_program(doc: dict, traffic: dict, seed: int, device):
-    """The port's model with the run's weights, and its engine."""
-    from repro_torch import configs as registry
+def build_program(doc: dict, traffic: dict, seed: int, device,
+                  p: Parts | None = None):
+    """The port's model with the run's weights, and its engine; ``p`` is
+    ``parts(doc)`` where the caller has it."""
     from repro_torch.models import convert
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import EngineConfig, GenerationEngine
-    c = ref_model.expand(doc["model"])
-    fields = {k: v for k, v in c.items()
-              if k not in ("block_unit", "n_super", "d_inner")}
-    fields["block_pattern"] = tuple(c["block_pattern"])
-    cfg = registry.get(doc["registry_id"]).replace(**fields)
-    if "d_inner" in c and cfg.d_inner != c["d_inner"]:
-        raise ValueError(f"d_inner {cfg.d_inner} != {c['d_inner']}")
-    model = Model(cfg, device=device, seed=0)
-    convert.load_params(model, weights.make(doc["model"], seed, device))
+    p = p or parts(doc)
+    model = Model(p.config, device=device, seed=0)
+    convert.load_params(model, weights.make(doc["model"], seed, device,
+                                            p.reference))
     engine = GenerationEngine(model, EngineConfig(
         method=traffic["method"], steps=traffic["T"],
         schedule=traffic["schedule"], noise_kind=traffic["noise"],
@@ -422,17 +487,21 @@ def trajectories(traffic: dict, out: dict, ctx: Context, seed: int):
 
 
 def judge(traffic: dict, doc: dict, seed: int, device, sample, trajs,
-          faults: dict, failed: int, kept: list) -> dict:
+          faults: dict, failed: int, kept: list, ref: ModuleType) -> dict:
     """The numbers compared, each with its limit: {name: (value,
-    limit)}.  A number passes when it is at most its limit."""
+    limit)}.  A number passes when it is at most its limit.  The
+    configuration's reference ``ref`` draws the weights and computes the
+    logits."""
     check = importlib.import_module(
         f"dndmbench.reference.{traffic['reference_check']}")
-    tree = weights.make(doc["model"], seed, device)
+    tree = weights.make(doc["model"], seed, device, ref)
     T, shared = traffic["T"], traffic["shared_tau"]
-    r = check.check_logits(kept, tree, doc["model"], device=device)
+    r = check.check_logits(kept, tree, doc["model"], device=device,
+                           reference=ref)
     kept.clear()
     r = check.check(sample, tree, doc["model"], T=T, shared=shared,
-                    device=device, block_rows=traffic["ref_rows"], readings=r)
+                    device=device, block_rows=traffic["ref_rows"], readings=r,
+                    reference=ref)
     probs = torch.as_tensor(check.linear_transition_probs(T),
                             dtype=torch.float32, device=device)
     nfe_wrong = sum(int(t.nfe != check.nfe_of(t.seed, probs, t.tokens.shape[0],
@@ -462,11 +531,15 @@ def no_jax() -> list[str]:
 
 
 def run_cell(spec: dict, cell: str, doc: dict, traffic: dict, seed: int,
-             seconds: float, trace: bool, device, t_start: float) -> dict:
-    """One run; returns the result line's object."""
+             seconds: float, trace: bool, device, t_start: float,
+             bench: Path = BENCH) -> dict:
+    """One run; returns the result line's object.  ``bench`` holds the
+    parts that ``doc`` names and the metric readers."""
     device = torch.device(device)
-    ctx = Context(cell, ref_model.expand(doc["model"]), traffic, device)
-    engine = build_program(doc, traffic, subseed(seed, 0), device)
+    p = parts(doc, bench)
+    ctx = Context(cell, p.reference.expand(doc["model"]), traffic, device,
+                  p.work)
+    engine = build_program(doc, traffic, subseed(seed, 0), device, p)
     ctx.tap = tap_for(engine, traffic, seed)
     if device.type == "cuda":
         # the peak of serving, not of the load's transient weight buffers
@@ -494,10 +567,10 @@ def run_cell(spec: dict, cell: str, doc: dict, traffic: dict, seed: int,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     checks = judge(traffic, doc, subseed(seed, 0), device, sample, trajs,
-                   faults, failed, kept)
+                   faults, failed, kept, p.reference)
     metrics = {}
     for m in metric_entries(spec, cell, trace):
-        value = metric_reader(m["name"]).read(ctx)
+        value = metric_reader(m["name"], bench).read(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     result = {"correct": all(v <= lim for v, lim in checks.values()),

@@ -6,8 +6,8 @@ returns None."""
 from __future__ import annotations
 
 from dndmbench.harness import percentile
-from dndmbench.work import (PEAKS, bound_seconds, call, decode_scores,
-                            dndm_update, flash_attention, ssd_scan)
+from dndmbench.work import (PEAKS, bound_seconds, decode_scores, dndm_update,
+                            flash_attention, ssd_scan)
 
 
 def latency(ctx, q: int):
@@ -39,12 +39,13 @@ def ms_per_call(ctx):
 
 
 def call_mfu(ctx):
-    """The window's model operations (``work/call.py``, at the live rows)
-    over its seconds, as a share (%) of the f32 peak."""
+    """The window's model operations (the configuration's work module,
+    ``ctx.work``, at the live rows) over its seconds, as a share (%) of
+    the f32 peak."""
     rows = live_rows_per_call(ctx)
     if not rows or not ctx.window_s:
         return None
-    ops = call.flops(ctx.config, 1, ctx.traffic["N"]) * rows * ctx.calls
+    ops = ctx.work.flops(ctx.config, 1, ctx.traffic["N"]) * rows * ctx.calls
     return 100.0 * ops / ctx.window_s / PEAKS["flops_per_s"][ctx.config["dtype"]]
 
 

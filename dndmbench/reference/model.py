@@ -139,13 +139,11 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
 
 
-def attention_block(p: dict, x: torch.Tensor, c: dict) -> torch.Tensor:
-    """x + attn(norm(x)), then x + mlp(norm(x)); attention over the whole
-    sequence both ways, kv heads shared by H / KV query heads."""
-    B, S, d = x.shape
+def attention(a: dict, h: torch.Tensor, c: dict) -> torch.Tensor:
+    """RoPE attention of h (B, S, d) over the whole sequence both ways,
+    kv heads shared by H / KV query heads, through ``wo``."""
+    B, S, d = h.shape
     H, KV, hd = c["n_heads"], c["n_kv_heads"], c["head_dim"]
-    h = rmsnorm(x, p["ln1"]["scale"], c["norm_eps"])
-    a = p["attn"]
     q = rope(mm(h, a["wq"]).view(B, S, H, hd), c["rope_theta"])
     k = rope(mm(h, a["wk"]).view(B, S, KV, hd), c["rope_theta"])
     v = mm(h, a["wv"]).view(B, S, KV, hd)
@@ -154,13 +152,22 @@ def attention_block(p: dict, x: torch.Tensor, c: dict) -> torch.Tensor:
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))      # (B, H, S, hd)
     w = torch.softmax(mm(q, k.transpose(-1, -2)) / math.sqrt(hd), dim=-1)
     o = mm(w, v).transpose(1, 2).reshape(B, S, H * hd)
-    x = x + mm(o, a["wo"])
-    h = rmsnorm(x, p["ln2"]["scale"], c["norm_eps"])
-    m = p["mlp"]
+    return mm(o, a["wo"])
+
+
+def mlp(m: dict, h: torch.Tensor, c: dict) -> torch.Tensor:
+    """The SwiGLU (``gate``, ``up``, ``down``) or GELU MLP of h."""
     up = mm(h, m["up"])
     act = (F.silu(mm(h, m["gate"])) * up if c["mlp_type"] == "swiglu"
            else F.gelu(up, approximate="tanh"))
-    return x + mm(act, m["down"])
+    return mm(act, m["down"])
+
+
+def attention_block(p: dict, x: torch.Tensor, c: dict) -> torch.Tensor:
+    """x + attn(norm(x)), then x + mlp(norm(x))."""
+    x = x + attention(p["attn"], rmsnorm(x, p["ln1"]["scale"], c["norm_eps"]),
+                      c)
+    return x + mlp(p["mlp"], rmsnorm(x, p["ln2"]["scale"], c["norm_eps"]), c)
 
 
 def ssd(x, dt, A, Bm, Cm, heads_per_block: int = 16):

@@ -17,7 +17,8 @@ tau equals t.
 The check replays that from the seed alone: for each call it rebuilds
 the input x_t from the served tokens (a position holds its served token
 once its tau lies above t, [MASK] before), computes the reference's
-logits, adds the mask and the call's Gumbel slab, and reads at each
+logits (the configuration's reference, ``reference/model.py`` by
+default), adds the mask and the call's Gumbel slab, and reads at each
 position revealed at t the gap by which the served token's score lies
 below the best score.  A sound program reads rounding; a wrong logit
 that changes a choice, a wrong token or a position left unrevealed reads
@@ -30,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from dndmbench.reference import model as ref_model
+from dndmbench.reference import model
 
 MASK_NEG = -1e9
 
@@ -98,10 +99,12 @@ def nfe_of(seed: int, probs: torch.Tensor, rows: int, N: int, shared: bool,
 
 def check(trajs: list[Trajectory], tree: dict, c: dict, *, T: int,
           shared: bool, device, block_rows: int, control: bool = False,
-          readings: Readings | None = None) -> Readings:
-    """Replay ``trajs`` against the reference; returns the readings.
-    ``control`` also computes the TF32 reference's logits and reads the
-    gap of the token it puts first."""
+          readings: Readings | None = None,
+          reference=model) -> Readings:
+    """Replay ``trajs`` against ``reference`` (its ``forward`` under its
+    ``precision``); returns the readings.  ``control`` also computes the
+    TF32 reference's logits and reads the gap of the token it puts
+    first."""
     r = readings or Readings()
     K = c["vocab_size"]
     mask_id = K - 1
@@ -116,11 +119,11 @@ def check(trajs: list[Trajectory], tree: dict, c: dict, *, T: int,
             return
         x = torch.stack([p[0] for p in pending])
         tn = torch.stack([p[1] for p in pending])
-        with ref_model.precision("float32", device):
-            logits = ref_model.forward(tree, c, x, tn)
+        with reference.precision("float32", device):
+            logits = reference.forward(tree, c, x, tn)
         if control:
-            with ref_model.precision("tf32", device):
-                low = ref_model.forward(tree, c, x, tn)
+            with reference.precision("tf32", device):
+                low = reference.forward(tree, c, x, tn)
         for i, (_, _, y, sel, g) in enumerate(pending):
             s = logits[i] + mask + g
             best = s.max(-1).values
@@ -157,20 +160,21 @@ def check(trajs: list[Trajectory], tree: dict, c: dict, *, T: int,
 
 def check_logits(kept: list, tree: dict, c: dict, *, device,
                  control: bool = False,
-                 readings: Readings | None = None) -> Readings:
+                 readings: Readings | None = None,
+                 reference=model) -> Readings:
     """The widest gap between the logits of the network calls the window
-    made, ``kept`` as (x_t, t_norm, logits) on the device, and the
-    reference's logits on the same inputs; ``control`` also reads the
+    made, ``kept`` as (x_t, t_norm, logits) on the device, and
+    ``reference``'s logits on the same inputs; ``control`` also reads the
     TF32 reference's widest gap from the float32 one."""
     r = readings or Readings()
     for x, tn, logits in kept:
-        with ref_model.precision("float32", device):
-            ref = ref_model.forward(tree, c, x, tn)
+        with reference.precision("float32", device):
+            ref = reference.forward(tree, c, x, tn)
         r.logit_err = max(r.logit_err, float((logits - ref).abs().max()))
         r.calls += 1
         if control:
-            with ref_model.precision("tf32", device):
-                low = ref_model.forward(tree, c, x, tn)
+            with reference.precision("tf32", device):
+                low = reference.forward(tree, c, x, tn)
             r.control_logit_err = max(r.control_logit_err,
                                       float((low - ref).abs().max()))
     return r

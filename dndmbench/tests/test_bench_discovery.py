@@ -43,6 +43,14 @@ def test_configs_resolve():
         assert doc["name"] == c["name"] and doc["source"] == c["source"]
         assert doc["reduced"] == c["reduced"]
         assert any(w["config"] == c["name"] for w in SPEC["workloads"])
+        # its reference, its work count and the port's config
+        p = harness.parts(doc)
+        for fn in ("expand", "param_shapes", "forward", "precision"):
+            assert callable(getattr(p.reference, fn)), fn
+        widths = p.reference.expand(doc["model"])
+        assert p.config.block_pattern == tuple(widths["block_pattern"])
+        assert p.config.n_layers == doc["model"]["n_layers"]
+        assert p.work.flops(widths, 1, 8) > 0
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -76,11 +76,12 @@ def test_union_and_host_time():
 
 
 def _ctx(**kw):
-    c = json.loads((harness.BENCH / "configs" / "dndm-text8.json")
-                   .read_text())["model"]
+    doc = json.loads((harness.BENCH / "configs" / "dndm-text8.json")
+                     .read_text())
+    p = harness.parts(doc)
     mix = harness.traffic_doc("closed-32x256-t1000")
-    return harness.Context("text8-batch", ref_model.expand(c), mix,
-                           torch.device("cpu"), **kw)
+    return harness.Context("text8-batch", p.reference.expand(doc["model"]),
+                           mix, torch.device("cpu"), p.work, **kw)
 
 
 def test_roofline_reads_launches_times_bound_over_device_time():

@@ -1,9 +1,12 @@
 """The weights of a run, made on the device from the run's seed in two
 large draws (one normal, one uniform) and cut into the checkpoint layout
-that ``reference/model.py`` reads and the program loads
-(``repro_torch.models.convert.load_params``).
-
-Every leaf is a view of the two flat buffers:
+that the configuration's reference (``reference/model.py`` by default)
+reads and the program loads (``repro_torch.models.convert.load_params``).
+The reference gives the leaves and their order (``param_shapes``), and
+may give a leaf its own law: its ``leaf_rule(path, shape, c)`` returns
+``(kind, scale, offset)`` as :func:`_leaf_rule` does, or None for the
+default laws.  Every leaf is a view of the two flat buffers; the
+default laws:
 
 * dense weights (d_in, d_out): normal / sqrt(d_in); the residual
   branches' output projections (``wo``, ``down``, ``out_proj``) also
@@ -49,11 +52,13 @@ def _leaf_rule(path: str, shape: tuple, c: dict):
     return "normal", s, 0.0
 
 
-def make(c: dict, seed: int, device) -> dict:
+def make(c: dict, seed: int, device, reference=ref_model) -> dict:
     """The nested parameter dict of configuration ``c`` (a config file's
-    ``model``) from ``seed``."""
-    shapes = ref_model.param_shapes(c)
-    rules = {p: _leaf_rule(p, s, c) for p, s in shapes.items()}
+    ``model``) from ``seed``, with the leaves of ``reference``."""
+    shapes = reference.param_shapes(c)
+    own = getattr(reference, "leaf_rule", lambda path, shape, c: None)
+    rules = {p: own(p, s, c) or _leaf_rule(p, s, c)
+             for p, s in shapes.items()}
     sizes = {p: math.prod(s) for p, s in shapes.items()}
     n_norm = sum(sizes[p] for p in shapes if rules[p][0] == "normal")
     n_unif = sum(sizes[p] for p in shapes if rules[p][0] != "normal")

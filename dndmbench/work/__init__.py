@@ -1,6 +1,8 @@
 """Frozen work counts: the operations and bytes of each operation, worked
 out from its shapes alone, so that they read the same whatever kernel
-implements it; and the card's peaks (``peaks.json``)."""
+implements it; and the card's peaks (``peaks.json``).  A configuration
+file names the module that counts one network call of its architecture
+(``"work"``, ``call.py`` by default)."""
 from __future__ import annotations
 
 import json
