@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from dndmbench import harness, weights
+from dndmbench import harness, routes, weights
+from dndmbench.reference.routing import is_routed
 
 
 def state_unchanged(setattr_):
@@ -75,9 +76,50 @@ def finished_twice(setattr_):
              again(scheduler.BatchScheduler.run))
 
 
+def router_sort(setattr_, sort):
+    """The port's MoE router sorts its scores with ``sort(scores, K,
+    **kw)`` in place of ``torch.sort``, K the layer's experts per
+    token."""
+    from repro_torch.models import moe
+    route = moe.MoE.route
+
+    class Torch:
+        """``torch`` as the router's module sees it, but for ``sort``."""
+
+        def __init__(self, K):
+            self.sort = lambda x, **kw: sort(x, K, **kw)
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+    def routed(self, *a, **k):
+        moe.torch = Torch(self.cfg.experts_per_token)
+        try:
+            return route(self, *a, **k)
+        finally:
+            moe.torch = torch
+    setattr_(moe.MoE, "route", routed)
+
+
+def routing_swapped(setattr_):
+    """At every routed layer, the first token goes to its (K+1)-th
+    expert in place of its K-th, where the router chooses."""
+    def swapped(x, K, **kw):
+        v, i = torch.sort(x, **kw)
+        if x.shape[-1] > K:
+            order = torch.arange(x.shape[-1], device=x.device)
+            order[[K - 1, K]] = order[[K, K - 1]]
+            first = (0,) * (x.dim() - 1)
+            v, i = v.clone(), i.clone()
+            v[first], i[first] = v[first][order], i[first][order]
+        return v, i
+    router_sort(setattr_, swapped)
+
+
 def control(setattr_, doc: dict, seed: int, device) -> None:
     """The control: the configuration's reference in the program's place,
-    its products in TF32, on the run's weights."""
+    its products in TF32, on the run's weights; a routed reference
+    records its own expert choices as the program's."""
     from repro_torch.models import model
     ref = harness.parts(doc).reference
     tree = weights.make(doc["model"], harness.subseed(seed, 0), device, ref)
@@ -85,7 +127,12 @@ def control(setattr_, doc: dict, seed: int, device) -> None:
     def denoise_fn(self, cond=None):
         def fn(x, t, c):
             with ref.precision("tf32", device):
-                return ref.forward(tree, doc["model"], x, t)
+                if not is_routed(ref):
+                    return ref.forward(tree, doc["model"], x, t)
+                logits, chosen = ref.forward_chosen(tree, doc["model"], x, t)
+            for ids in chosen:
+                routes.record(ids)
+            return logits
         return fn
     setattr_(model.Model, "denoise_fn", denoise_fn)
 
@@ -94,3 +141,5 @@ FAULTS = {"state_unchanged": state_unchanged,
           "half_batch_left_out": half_batch_left_out,
           "token_altered": token_altered,
           "finished_twice": finished_twice}
+# the faults only a routed configuration can have
+ROUTED_FAULTS = {"routing_swapped": routing_swapped}

@@ -28,10 +28,20 @@ widths as run, and names the parts that depend on its architecture
   ``model`` is ``.replace``d onto that config.
 
 So an architecture joins the benchmark as new files: its configuration,
-its reference and its work count.
+its reference and its work count.  A cell joins as new files (its
+configuration, its mix, its new metrics' readers) and entries appended
+to ``BENCHMARK.json``, whose ``workloads`` of a metric is the only list
+of the cells it reports in: no file that is there is edited.
+
+A configuration whose reference defines ``forward_routed`` is routed:
+its window runs under :func:`routes.recording`, the tap keeps every
+call's expert choices, and the checks force them into the reference and
+add ``routing_shortfall`` (``reference/routing.py``).  Only closed-loop
+mixes serve a routed configuration.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -47,7 +57,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dndmbench import arrivals, weights
+from dndmbench import arrivals, routes, weights
+from dndmbench.reference.routing import is_routed
 from dndmbench.trace import Profiled, Trace
 
 BENCH = Path(__file__).resolve().parent
@@ -229,36 +240,72 @@ class LogitTap:
     It wraps ``GenerationEngine.denoise_fn``, the denoiser entry that
     both schedulers' samplers call once per network call, before any
     scheduler exists.  While ``active``, call ``i`` of the window is kept
-    (cloned on the device, no synchronisation) when ``i % every ==
-    offset``, up to ``most`` calls."""
+    (cloned on the device, no synchronisation) as (x, t, logits,
+    routing) when ``i % every == offset``, up to ``most`` calls.
+
+    With a :class:`routes.Recording` as ``routes`` (a routed
+    configuration), every call of the window also leaves its routed
+    layers, (B, S, K) ids each, in ``routing[batch]``, in call order
+    (``batch`` is set by the closed loop before each batch); without
+    one, ``routing`` of a kept call is None."""
 
     def __init__(self, engine, every: int, offset: int, most: int):
         self.fn, self.every, self.offset, self.most = \
             engine.denoise_fn, every, offset, most
+        self.routes: routes.Recording | None = None
+        self.batch, self.routing = 0, {}
         self.active, self.seen, self.kept = False, 0, []
         engine.denoise_fn = self
+
+    @property
+    def active(self) -> bool:
+        return self._active
+
+    @active.setter
+    def active(self, on: bool) -> None:
+        self._active = on
+        if self.routes is not None:
+            self.routes.on = on
 
     def __call__(self, x, t, cond):
         out = self.fn(x, t, cond)
         if self.active:
+            layers = None
+            if self.routes is not None:
+                layers = self.routes.take(*x.shape)
+                self.routing.setdefault(self.batch, []).append(layers)
             if (self.seen % self.every == self.offset
                     and len(self.kept) < self.most and cond is None):
-                self.kept.append((x.clone(), t.clone(), out.clone()))
+                self.kept.append((x.clone(), t.clone(), out.clone(), layers))
             self.seen += 1
         return out
 
 
-def tap_for(engine, traffic: dict, seed: int) -> LogitTap:
+def tap_for(engine, traffic: dict, seed: int,
+            recording: routes.Recording | None = None) -> LogitTap:
     """The engine's tap, installed once and emptied for each window; the
     calls it keeps are every ``tap_every``-th, from an offset drawn from
-    the seed."""
+    the seed.  ``recording`` is the open routing recording of a routed
+    configuration."""
     every = traffic["tap_every"]
     offset = int(np.random.default_rng(subseed(seed, 5)).integers(every))
     tap = engine.denoise_fn
     if not isinstance(tap, LogitTap):
         tap = LogitTap(engine, every, offset, traffic["tap_most"])
+    tap.routes, tap.batch, tap.routing = recording, 0, {}
     tap.offset, tap.active, tap.seen, tap.kept = offset, False, 0, []
     return tap
+
+
+def routing_for(ref: ModuleType, traffic: dict):
+    """The routing recording a run of ``traffic`` needs: open for a
+    routed reference, nothing otherwise."""
+    if not is_routed(ref):
+        return contextlib.nullcontext()
+    if traffic["loop"] != "closed":
+        raise ValueError("a routed configuration is served only on a "
+                         f"closed-loop mix, not {traffic['loop']!r}")
+    return routes.recording()
 
 
 # ---------------------------------------------------------------- loops
@@ -408,6 +455,7 @@ def run_closed(engine, traffic: dict, seed: int, seconds: float,
     ctx.setup_s = t_open - t_start
     batches = []
     while True:
+        ctx.tap.batch = len(batches) + int(warm)
         rids, t0, t1 = one_batch()
         reqs = [sched.done[r] for r in rids]
         batches.append({"index": len(batches) + int(warm), "start": t0,
@@ -464,13 +512,15 @@ def trajectories(traffic: dict, out: dict, ctx: Context, seed: int):
         seeds = scheduler_seeds(out["sched_seed"],
                                 ctx.batches[-1]["index"] + 1)
         nfe_split = 0
+        routing = ctx.tap.routing if ctx.tap.routes is not None else None
         for b in ctx.batches:
             reqs = [sched.done[r] for r in b["rids"]]
             want = seeds[b["index"]]
             seed_wrong += int(any(r.seed != want for r in reqs))
             nfe_split += int(len({r.nfe for r in reqs}) != 1)
-            trajs.append(Trajectory(want, np.stack([r.result for r in reqs]),
-                                    reqs[0].nfe))
+            trajs.append(Trajectory(
+                want, np.stack([r.result for r in reqs]), reqs[0].nfe,
+                None if routing is None else routing.get(b["index"], [])))
         attempted, failed = len(trajs) * traffic["rows"], 0
         faults = {"seed_wrong": seed_wrong, "nfe_split": nfe_split}
     faults["done_twice"] = sched.done.twice()
@@ -491,7 +541,8 @@ def judge(traffic: dict, doc: dict, seed: int, device, sample, trajs,
     """The numbers compared, each with its limit: {name: (value,
     limit)}.  A number passes when it is at most its limit.  The
     configuration's reference ``ref`` draws the weights and computes the
-    logits."""
+    logits; a routed one is forced to the program's expert choices, and
+    adds ``routing_shortfall``."""
     check = importlib.import_module(
         f"dndmbench.reference.{traffic['reference_check']}")
     tree = weights.make(doc["model"], seed, device, ref)
@@ -512,6 +563,10 @@ def judge(traffic: dict, doc: dict, seed: int, device, sample, trajs,
     checks = {"logit_err": (r.logit_err, traffic["limits"]["logit_err"]),
               "logit_calls_short": (max(0, traffic["tap_min"] - r.calls), 0),
               "widest_gap": (r.widest_gap, traffic["limits"]["widest_gap"]),
+              **({"routing_shortfall": (
+                  r.routing_shortfall,
+                  traffic["limits"]["routing_shortfall"])}
+                 if is_routed(ref) else {}),
               "tokens_checked_short": (
                   max(0, traffic["check_min_tokens"] - r.tokens), 0),
               "nfe_wrong": (nfe_wrong, 0),
@@ -539,14 +594,18 @@ def run_cell(spec: dict, cell: str, doc: dict, traffic: dict, seed: int,
     p = parts(doc, bench)
     ctx = Context(cell, p.reference.expand(doc["model"]), traffic, device,
                   p.work)
+    routed = routing_for(p.reference, traffic)
     engine = build_program(doc, traffic, subseed(seed, 0), device, p)
-    ctx.tap = tap_for(engine, traffic, seed)
-    if device.type == "cuda":
-        # the peak of serving, not of the load's transient weight buffers
-        torch.cuda.reset_peak_memory_stats(device)
-    serve = {"open": run_open, "closed": run_closed}[traffic["loop"]]
-    out = serve(engine, traffic, seed, seconds, trace, device, ctx, t_start)
-    _sync(device)
+    with routed as recording:
+        ctx.tap = tap_for(engine, traffic, seed, recording)
+        if device.type == "cuda":
+            # the peak of serving, not of the load's transient weight
+            # buffers
+            torch.cuda.reset_peak_memory_stats(device)
+        serve = {"open": run_open, "closed": run_closed}[traffic["loop"]]
+        out = serve(engine, traffic, seed, seconds, trace, device, ctx,
+                    t_start)
+        _sync(device)
     if ctx.profiled is not None:
         ctx.profiled.collect()
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,

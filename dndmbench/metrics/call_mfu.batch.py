@@ -5,7 +5,6 @@ LAYER = "denoiser (models/)"
 UNIT = "%"
 MOVES = "tokens_per_s"
 SOURCE = "host_clock"
-WORKLOADS = ["text8-batch", "zamba2-batch"]
 
 
 def read(ctx):

@@ -5,7 +5,6 @@ LAYER = "denoiser (models/)"
 UNIT = "%"
 MOVES = "latency_p50_s"
 SOURCE = "host_clock"
-WORKLOADS = ["text8-serve"]
 
 
 def read(ctx):

@@ -7,7 +7,6 @@ LAYER = "decode kernels (core/decode.py)"
 UNIT = "ms"
 MOVES = "tokens_per_s"
 SOURCE = "program_span"
-WORKLOADS = ["text8-batch", "zamba2-batch"]
 
 
 def read(ctx):

@@ -7,7 +7,6 @@ LAYER = "decode kernels (core/decode.py)"
 UNIT = "ms"
 MOVES = "latency_p50_s"
 SOURCE = "program_span"
-WORKLOADS = ["text8-serve"]
 
 
 def read(ctx):

@@ -6,7 +6,6 @@ LAYER = "denoiser (models/)"
 UNIT = "ms"
 MOVES = "latency_p50_s"
 SOURCE = "program_span"
-WORKLOADS = ["text8-serve"]
 
 
 def read(ctx):

@@ -5,7 +5,6 @@ LAYER = "device (H100)"
 UNIT = "%"
 MOVES = "tokens_per_s"
 SOURCE = "device_trace"
-WORKLOADS = ["text8-batch", "zamba2-batch"]
 
 
 def read(ctx):

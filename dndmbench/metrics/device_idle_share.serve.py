@@ -5,7 +5,6 @@ LAYER = "device (H100)"
 UNIT = "%"
 MOVES = "latency_p50_s"
 SOURCE = "device_trace"
-WORKLOADS = ["text8-serve"]
 
 
 def read(ctx):

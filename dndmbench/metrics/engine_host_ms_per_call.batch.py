@@ -6,7 +6,6 @@ LAYER = "engine (serving/engine.py)"
 UNIT = "ms"
 MOVES = "tokens_per_s"
 SOURCE = "program_span"
-WORKLOADS = ["text8-batch", "zamba2-batch"]
 
 
 def read(ctx):

@@ -5,7 +5,6 @@ LAYER = "attention kernel (kernels/flash_attention)"
 UNIT = "%"
 MOVES = "tokens_per_s"
 SOURCE = "device_trace"
-WORKLOADS = ["text8-batch", "zamba2-batch"]
 # the kernels timed, by a part of their names in the trace
 KERNELS = ("flash_attention_kernel",)
 

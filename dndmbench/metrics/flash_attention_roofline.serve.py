@@ -5,7 +5,6 @@ LAYER = "attention kernel (kernels/flash_attention)"
 UNIT = "%"
 MOVES = "latency_p50_s"
 SOURCE = "device_trace"
-WORKLOADS = ["text8-serve"]
 # the kernels timed, by a part of their names in the trace
 KERNELS = ("flash_attention_kernel",)
 

@@ -5,7 +5,6 @@ LAYER = "engine (serving/engine.py)"
 UNIT = "ms"
 MOVES = "tokens_per_s"
 SOURCE = "device_trace"
-WORKLOADS = ["text8-batch", "zamba2-batch"]
 
 
 def read(ctx):

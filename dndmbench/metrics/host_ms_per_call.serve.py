@@ -5,7 +5,6 @@ LAYER = "engine (serving/engine.py)"
 UNIT = "ms"
 MOVES = "latency_p50_s"
 SOURCE = "device_trace"
-WORKLOADS = ["text8-serve"]
 
 
 def read(ctx):

@@ -5,7 +5,6 @@ LAYER = "run"
 UNIT = "s"
 MOVES = "latency_p90_s"
 SOURCE = "host_clock"
-WORKLOADS = ["text8-serve"]
 
 
 def read(ctx):

@@ -3,7 +3,6 @@ LAYER = "sampler (core/samplers/)"
 UNIT = "calls"
 MOVES = "tokens_per_s"
 SOURCE = "program_counter"
-WORKLOADS = ["text8-batch", "zamba2-batch"]
 
 
 def read(ctx):

@@ -3,7 +3,6 @@ LAYER = "sampler (core/samplers/)"
 UNIT = "calls"
 MOVES = "latency_p50_s"
 SOURCE = "program_counter"
-WORKLOADS = ["text8-serve"]
 
 
 def read(ctx):

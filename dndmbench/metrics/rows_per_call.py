@@ -5,7 +5,6 @@ LAYER = "scheduler (serving/scheduler.py)"
 UNIT = "rows"
 MOVES = "latency_p50_s"
 SOURCE = "program_counter"
-WORKLOADS = ["text8-serve"]
 
 
 def read(ctx):

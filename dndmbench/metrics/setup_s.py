@@ -3,7 +3,6 @@ LAYER = "run"
 UNIT = "s"
 MOVES = "setup_s"
 SOURCE = "host_clock"
-WORKLOADS = ["text8-serve", "text8-batch", "zamba2-batch"]
 
 
 def read(ctx):

@@ -5,7 +5,6 @@ LAYER = "SSD scan kernel (kernels/ssd_scan)"
 UNIT = "%"
 MOVES = "tokens_per_s"
 SOURCE = "device_trace"
-WORKLOADS = ["zamba2-batch"]
 # the scan's passes, by a part of their names in the trace; a launch
 # is counted by its output pass
 KERNELS = ("ssd_output_kernel", "ssd_state_kernel", "ssd_carry_kernel")

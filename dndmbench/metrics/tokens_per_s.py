@@ -3,7 +3,6 @@ LAYER = "run"
 UNIT = "tokens/s"
 MOVES = "tokens_per_s"
 SOURCE = "host_clock"
-WORKLOADS = ["text8-batch", "zamba2-batch"]
 
 
 def read(ctx):

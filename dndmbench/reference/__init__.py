@@ -23,6 +23,26 @@ of this package that the configuration file names under ``"reference"``
   a leaf's law, as ``weights._leaf_rule`` gives it, or None for the
   default laws.
 
+A reference of a configuration with top-K routed layers, where a choice
+flips between the program and the reference at rounding, also defines
+(``routing.py`` says why, and its ``Route`` does the choosing):
+
+* ``forward_routed(tree, c, tokens, t, routing) -> (logits, shortfall)``:
+  ``routing`` holds one (B, S, K) id tensor per routed layer, in the
+  order the forward reaches them, the program's choices.  Each routed
+  layer runs the reference's own router, then computes with those
+  experts, gated by the reference's own scores at them.  ``shortfall``
+  is the largest, over tokens and layers, of the reference's K-th best
+  selection score less the score of a chosen expert, floored at 0;
+  ids that repeat or fall out of range, or layers that do not match,
+  give ``inf``;
+* ``forward_chosen(tree, c, tokens, t) -> (logits, routing)``: the
+  forward on its own choices, and those choices, as ``forward_routed``
+  takes them (the control records them as the program's).
+
+Such a configuration is routed: the harness records the program's
+choices (``dndmbench/routes.py``) and the checks force them in.
+
 A new reference imports ``precision``, ``mm``, ``rmsnorm``,
 ``attention``, ``mlp``, ``ssd``, ``time_embed`` and the other helpers of
 ``model.py``, so that every configuration has the one TF32 control.

@@ -23,15 +23,22 @@ position revealed at t the gap by which the served token's score lies
 below the best score.  A sound program reads rounding; a wrong logit
 that changes a choice, a wrong token or a position left unrevealed reads
 a large gap.
+
+A routed reference (one with ``forward_routed``) computes each call with
+the expert choices the program made at it, the trajectory's call ``i``
+with the routing of the program's call ``i``, and reads the choices'
+``routing_shortfall`` (``routing.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from dndmbench.reference import model
+from dndmbench.reference.routing import is_routed
 
 MASK_NEG = -1e9
 
@@ -72,10 +79,13 @@ def gumbel(gen: torch.Generator, shape, device) -> torch.Tensor:
 @dataclasses.dataclass
 class Trajectory:
     """One seeded sampler run as the program served it: ``tokens`` (rows,
-    N) on the host, ``nfe`` the calls the program reported."""
+    N) on the host, ``nfe`` the calls the program reported; for a routed
+    configuration ``routing``, per call the program made, its routed
+    layers' (rows, N, K) expert ids."""
     seed: int
     tokens: np.ndarray
     nfe: int
+    routing: list | None = None
 
 
 @dataclasses.dataclass
@@ -89,6 +99,26 @@ class Readings:
     control_flips: int = 0           # where the control's choice differs
     nfe_wrong: int = 0               # trajectories whose NFE is not |tau|
     mask_left: int = 0               # served positions still [MASK]
+    routing_shortfall: float = 0.0   # the program's expert choices
+    control_routing_shortfall: float = 0.0   # the TF32 reference's
+
+
+def logits_of(reference, kind: str, device, tree: dict, c: dict,
+              x: torch.Tensor, tn: torch.Tensor, routing, r: Readings
+              ) -> torch.Tensor:
+    """``reference``'s logits in precision ``kind``; a routed reference's
+    forced to ``routing`` (its layers' ids, None where the program left
+    none: then its own choice, and an infinite shortfall), whose
+    shortfall ``r.routing_shortfall`` takes."""
+    with reference.precision(kind, device):
+        if not is_routed(reference):
+            return reference.forward(tree, c, x, tn)
+        if routing is None:
+            r.routing_shortfall = math.inf
+            return reference.forward(tree, c, x, tn)
+        logits, short = reference.forward_routed(tree, c, x, tn, routing)
+    r.routing_shortfall = max(r.routing_shortfall, short)
+    return logits
 
 
 def nfe_of(seed: int, probs: torch.Tensor, rows: int, N: int, shared: bool,
@@ -102,29 +132,37 @@ def check(trajs: list[Trajectory], tree: dict, c: dict, *, T: int,
           readings: Readings | None = None,
           reference=model) -> Readings:
     """Replay ``trajs`` against ``reference`` (its ``forward`` under its
-    ``precision``); returns the readings.  ``control`` also computes the
-    TF32 reference's logits and reads the gap of the token it puts
-    first."""
+    ``precision``, or a routed one's ``forward_routed`` on the program's
+    choices); returns the readings.  ``control`` also computes the TF32
+    reference's logits (on the same choices) and reads the gap of the
+    token it puts first."""
     r = readings or Readings()
+    routed = is_routed(reference)
     K = c["vocab_size"]
     mask_id = K - 1
     probs = torch.as_tensor(linear_transition_probs(T), dtype=torch.float32,
                             device=device)
     mask = torch.zeros(K, dtype=torch.float32, device=device)
     mask[mask_id] = MASK_NEG
-    pending: list = []        # (x_t, t_norm, tokens, reveal, gumbel) rows
+    # (x_t, t_norm, tokens, reveal, gumbel, routing) rows; a row's
+    # routing is its layers' (N, K) ids
+    pending: list = []
 
     def flush():
         if not pending:
             return
         x = torch.stack([p[0] for p in pending])
         tn = torch.stack([p[1] for p in pending])
-        with reference.precision("float32", device):
-            logits = reference.forward(tree, c, x, tn)
+        routing = None
+        if routed and all(p[5] is not None for p in pending):
+            routing = [torch.stack(layer) for layer in
+                       zip(*[p[5] for p in pending])]
+        logits = logits_of(reference, "float32", device, tree, c, x, tn,
+                           routing, r)
         if control:
-            with reference.precision("tf32", device):
-                low = reference.forward(tree, c, x, tn)
-        for i, (_, _, y, sel, g) in enumerate(pending):
+            low = logits_of(reference, "tf32", device, tree, c, x, tn,
+                            routing, Readings())
+        for i, (_, _, y, sel, g, _) in enumerate(pending):
             s = logits[i] + mask + g
             best = s.max(-1).values
             gap = best - s.gather(-1, y[:, None])[:, 0]
@@ -145,13 +183,17 @@ def check(trajs: list[Trajectory], tree: dict, c: dict, *, T: int,
         tau = draw_tau(gen, probs, rows, N, shared)
         times = torch.unique(tau).flip(0).tolist()
         r.nfe_wrong += int(tr.nfe != len(times))
-        for t in times:
+        for i, t in enumerate(times):
             g = gumbel(gen, (rows, N, K), device)
             x_t = torch.where(tau > t, y, mask_id)
             tn = torch.full((rows,), np.float32(t) / np.float32(T),
                             dtype=torch.float32, device=device)
+            layers = (tr.routing[i] if routed and tr.routing is not None
+                      and i < len(tr.routing) else None)
             for b in range(rows):
-                pending.append((x_t[b], tn[b], y[b], tau[b] == t, g[b]))
+                pending.append((x_t[b], tn[b], y[b], tau[b] == t, g[b],
+                                None if layers is None
+                                else [ids[b] for ids in layers]))
             if len(pending) >= block_rows:
                 flush()
     flush()
@@ -163,18 +205,30 @@ def check_logits(kept: list, tree: dict, c: dict, *, device,
                  readings: Readings | None = None,
                  reference=model) -> Readings:
     """The widest gap between the logits of the network calls the window
-    made, ``kept`` as (x_t, t_norm, logits) on the device, and
-    ``reference``'s logits on the same inputs; ``control`` also reads the
-    TF32 reference's widest gap from the float32 one."""
+    made, ``kept`` as (x_t, t_norm, logits, routing) on the device, and
+    ``reference``'s logits on the same inputs, a routed reference's
+    forced to the call's routing; ``control`` also reads the TF32
+    reference's widest gap from the float32 one, a routed reference's
+    with the TF32 reference's own choices forced into the float32 one,
+    and their shortfall."""
     r = readings or Readings()
-    for x, tn, logits in kept:
-        with reference.precision("float32", device):
-            ref = reference.forward(tree, c, x, tn)
+    for x, tn, logits, routing in kept:
+        ref = logits_of(reference, "float32", device, tree, c, x, tn,
+                        routing, r)
         r.logit_err = max(r.logit_err, float((logits - ref).abs().max()))
         r.calls += 1
-        if control:
+        if not control:
+            continue
+        if is_routed(reference):
+            with reference.precision("tf32", device):
+                low, chosen = reference.forward_chosen(tree, c, x, tn)
+            with reference.precision("float32", device):
+                ref, short = reference.forward_routed(tree, c, x, tn, chosen)
+            r.control_routing_shortfall = max(r.control_routing_shortfall,
+                                              short)
+        else:
             with reference.precision("tf32", device):
                 low = reference.forward(tree, c, x, tn)
-            r.control_logit_err = max(r.control_logit_err,
-                                      float((low - ref).abs().max()))
+        r.control_logit_err = max(r.control_logit_err,
+                                  float((low - ref).abs().max()))
     return r

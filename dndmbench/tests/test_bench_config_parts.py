@@ -269,7 +269,7 @@ def test_the_default_reference_reads_alike(doc):
         .numpy(), 3) for s in (7, 8)]
     x = torch.randint(0, c["vocab_size"], (2, 16), generator=g)
     kept = [(x, torch.tensor([0.25, 0.75]),
-             torch.randn(2, 16, c["vocab_size"], generator=g))]
+             torch.randn(2, 16, c["vocab_size"], generator=g), None)]
     readings = []
     for ref in (None, harness.parts(doc).reference, ref_model):
         kw = {} if ref is None else {"reference": ref}
