@@ -316,17 +316,22 @@ with the slots cut into chunks for 0.5 to 4 waves of the card's resident
 pass-1 blocks (``ops.decode_chunk`` takes one): the sweep that set that
 rule.
 
-    python3 chip_smoke.py --measure-dense-gemm
+    python3 chip_smoke.py --measure-dense-gemm [--parent DIR]
 
 builds the kernels, runs phase 5d, then times dense_gemm at the served
 shapes beside its bounds (3xTF32: operations at a third of 495 TFLOP/s;
 and at 495), the host time of ``layers.dense`` and of torch.matmul, the
 plain version (f32 torch.matmul on the CUDA cores, also the f32 library
-yardstick) and TF32 torch.matmul (a yardstick of lower precision); every
-K split at each served shape (the sweep behind ``ops.split_k``'s model);
-and the kernel against torch.matmul over rows (the sweep behind
-``layers.DENSE_MIN_ROWS`` and ``DENSE_MIN_MACS``).  Writes
-results/dense_gemm.json.
+yardstick) and TF32 torch.matmul (a yardstick of lower precision), and
+prints each shape's share of the 3xTF32 bound, its K parts and the host
+us a product through ``layers.dense``; with ``--parent DIR`` (an
+unpacked ``git archive`` of an earlier commit) also that tree's kernel,
+loaded into the same process: whether the two products are equal bit for
+bit, and both through ``layers.dense`` in alternating pairs (device ms,
+host us); every K split at each served shape (the sweep behind
+``ops.split_k``'s model); and the kernel against torch.matmul over rows
+(the sweep behind ``layers.DENSE_MIN_ROWS`` and ``DENSE_MIN_MACS``).
+Writes results/dense_gemm.json.
 
     python3 chip_smoke.py --measure-paths [--parent DIR]
 
@@ -744,6 +749,13 @@ def dense_inputs(g, M: int, K: int, N: int):
     return a, w
 
 
+def served_dense_inputs(g, name: str):
+    """``dense_inputs`` at ``DENSE_SHAPES[name]``, the weight laid out as
+    served: the tied head reads ``embed.T`` (K-major)."""
+    a, w = dense_inputs(g, *DENSE_SHAPES[name])
+    return a, (w.T.contiguous().T if name == "zamba2_head" else w)
+
+
 def check_dense_gemm(g) -> dict:
     """Phase 5d: kernel vs plain (f32, TF32 off) at DENSE_SHAPES and the
     ragged shapes in both layouts of B; an A off 16-byte rows refused by
@@ -793,12 +805,58 @@ def dense_iters(M: int, K: int, N: int) -> int:
     return max(5, min(200, int(20e-3 * 100e12 / (2 * M * N * K))))
 
 
-def dense_gemm_times(g) -> dict:
+def dense_through(ops_mod):
+    """``layers.dense`` with its kernel route bound to the wrapper module
+    ``ops_mod`` (this checkout's or another tree's)."""
+    def call(a, w):
+        saved = layers_lib.gemm_ops
+        layers_lib.gemm_ops = ops_mod
+        try:
+            with torch.inference_mode():
+                return layers_lib.dense(a, w)
+        finally:
+            layers_lib.gemm_ops = saved
+    return call
+
+
+def host_pairs_us(fns: dict, blocks: int = 60, calls: int = 8) -> dict:
+    """The host's microseconds a call of ``fns["parent"]`` and
+    ``fns["change"]``, finely interleaved: in each of ``blocks`` blocks the
+    device is first held by a busy-wait kernel (so neither side waits on
+    it), then each side makes ``calls`` calls, the parent first in every
+    other block.  Per side the median of its blocks' means; the median of
+    the blocks' differences (change - parent), and the number of blocks in
+    which the change took less."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    us = {k: [] for k in fns}
+    for i in range(blocks):
+        torch.cuda._sleep(4_000_000)
+        for k in ("parent", "change")[::1 if i % 2 == 0 else -1]:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[k]()
+            us[k].append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    diff = [c - p for c, p in zip(us["change"], us["parent"])]
+    return {"parent_us": statistics.median(us["parent"]),
+            "change_us": statistics.median(us["change"]),
+            "change_minus_parent_us": statistics.median(diff),
+            "blocks_change_lower": sum(d < 0 for d in diff),
+            "blocks": blocks}
+
+
+def dense_gemm_times(g, parent_ops=None) -> dict:
     """dense_gemm at each served shape: device and host ms, the bounds,
-    TFLOP/s, the plain version's and TF32 torch.matmul's device ms."""
+    TFLOP/s, the plain version's and TF32 torch.matmul's device ms; with
+    ``parent_ops`` (another tree's wrapper module), whether the two trees'
+    products are equal bit for bit, and both through ``layers.dense``:
+    device ms in PAIRS alternating pairs (``paired_times``) and the host's
+    us a product in interleaved blocks (``host_pairs_us``)."""
     out = {}
     for name, (M, K, N) in DENSE_SHAPES.items():
-        a, w = dense_inputs(g, M, K, N)
+        a, w = served_dense_inputs(g, name)
         it = dense_iters(M, K, N)
         flops = 2 * M * N * K
         kern = device_fields(device_time_ms(lambda: k5_ops.dense_gemm(a, w),
@@ -829,7 +887,30 @@ def dense_gemm_times(g) -> dict:
             "dense_host_ms": dense_host, "plain_host_ms": plain_host,
             "plain_ms": plain, "plain_tflop_per_s": flops / plain / 1e9,
             "library_ms": {"f32_cuda_cores": plain, "tf32": tf32}}
-        print(json.dumps({"dense_gemm_time": {name: out[name]}}), flush=True)
+        if parent_ops is not None:
+            same = torch.equal(parent_ops.dense_gemm(a, w),
+                               k5_ops.dense_gemm(a, w))
+            fns = {"parent": lambda: dense_through(parent_ops)(a, w),
+                   "change": lambda: dense_through(k5_ops)(a, w)}
+            pair = paired_times(fns, it)
+            host = host_pairs_us(fns)
+            out[name]["vs_parent"] = {
+                "bitwise_equal": same,
+                **{f"{k}_device_ms": pair[k]["device_ms"]
+                   for k in ("parent", "change")},
+                "pairs_change_device_lower":
+                    pair["pairs_change_device_ms_lower"],
+                **{f"{k}_dense_host_us": host[f"{k}_us"]
+                   for k in ("parent", "change")},
+                "dense_host_us_change_minus_parent":
+                    host["change_minus_parent_us"],
+                "host_blocks_change_lower": host["blocks_change_lower"]}
+        r = out[name]
+        print(json.dumps({"dense_gemm_time": {name: {
+            "share_of_tf32x3_bound": r["share_of_tf32x3_bound"],
+            "parts": r["parts"], "device_ms": r["device_ms"],
+            "dense_host_us": 1e3 * r["dense_host_ms"],
+            **r.get("vs_parent", {})}}}), flush=True)
     return out
 
 
@@ -840,7 +921,7 @@ def dense_parts_sweep(g) -> dict:
     pick = k5_ops.split_k
     try:
         for name, (M, K, N) in DENSE_SHAPES.items():
-            a, w = dense_inputs(g, M, K, N)
+            a, w = served_dense_inputs(g, name)
             ms = {}
             for parts in range(1, k5_ops.MAX_PARTS + 1):
                 k5_ops.split_k = lambda *_, p=parts: p
@@ -873,7 +954,7 @@ def dense_rows_sweep(g) -> dict:
     return out
 
 
-def measure_dense_gemm() -> int:
+def measure_dense_gemm(parent: Path | None) -> int:
     card = gpu_name_and_power()
     print(card, f"torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -886,7 +967,9 @@ def measure_dense_gemm() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     res = {"card": card, "check": check_dense_gemm(g)}
     print(json.dumps({"dense_gemm_check": res["check"]}), flush=True)
-    res["times"] = dense_gemm_times(g)
+    parent_ops = (tree_ops(parent, ("dense_gemm",))["dense_gemm"]
+                  if parent is not None else None)
+    res["times"] = dense_gemm_times(g, parent_ops)
     res["parts"] = dense_parts_sweep(g)
     print(json.dumps({"dense_parts": res["parts"]}), flush=True)
     res["rows"] = dense_rows_sweep(g)
@@ -3644,13 +3727,14 @@ DECODE_TIMED = (("dndm_update", (8, 256, 28)),
 PAIRS = 10
 
 
-def tree_wrappers(tree: Path) -> dict:
-    """The four kernel wrappers of the checkout ``tree`` (an unpacked
-    ``git archive`` of another commit), loaded into this process beside
-    this checkout's: that tree's ``kernels/build.py``, which builds its
-    CUDA sources into its own build/, and its four ``ops.py``, each bound
-    to that build module while it loads (their ``ref`` imports resolve to
-    this checkout's, which serve CPU tensors only)."""
+def tree_ops(tree: Path, names: tuple[str, ...]) -> dict:
+    """The kernel wrapper modules (``kernels/<name>/ops.py``) ``names`` of
+    the checkout ``tree`` (an unpacked ``git archive`` of another commit),
+    loaded into this process beside this checkout's: that tree's
+    ``kernels/build.py``, which builds its CUDA sources into its own
+    build/, and its ``ops.py`` modules, each bound to that build module
+    while it loads (their ``ref`` imports resolve to this checkout's, which
+    serve CPU tensors only)."""
     import importlib.util
     import repro_torch.kernels as kernels_pkg
     src = tree / "src" / "repro_torch" / "kernels"
@@ -3662,13 +3746,19 @@ def tree_wrappers(tree: Path) -> dict:
         spec.loader.exec_module(mod)
         return mod
 
-    kernels_pkg.build = load("build", src / "build.py")
+    kernels_pkg.build = sys.modules.get("tree_build") or load(
+        "build", src / "build.py")
     try:
-        return {k: getattr(load(k, src / k / "ops.py"), k)
-                for k in ("dndm_update", "flash_attention", "decode_scores",
-                          "ssd_scan")}
+        return {k: load(k, src / k / "ops.py") for k in names}
     finally:
         kernels_pkg.build = build
+
+
+def tree_wrappers(tree: Path) -> dict:
+    """The four decode, attention and scan kernel wrappers of ``tree``
+    (``tree_ops``)."""
+    names = ("dndm_update", "flash_attention", "decode_scores", "ssd_scan")
+    return {k: getattr(m, k) for k, m in tree_ops(tree, names).items()}
 
 
 def paired_times(fns: dict, iters: int) -> dict:
@@ -4086,7 +4176,7 @@ def main() -> int:
     if "--measure-flash-decode" in sys.argv:
         return measure_flash_decode_chunks()
     if "--measure-dense-gemm" in sys.argv:
-        return measure_dense_gemm()
+        return measure_dense_gemm(parent)
     # 1. the card
     print(gpu_name_and_power(), flush=True)
     if torch.backends.cuda.matmul.allow_tf32:

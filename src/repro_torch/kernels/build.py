@@ -44,7 +44,7 @@ _DECODE = [_P] * 5 + [_I] * 5 + [_LL] * 10 + [_I] * 3 + [_F, _P]
 _PARTIALS = [_P] * 7 + [_I] * 5 + [_LL] * 8 + [_I] * 5 + [_F, _P]
 _SCORES = [_P] * 5 + [_LL, _I, _F, _P]
 _SSD = [_P] * 9 + [_I] * 6 + [_LL] * 13 + [_P]
-_GEMM = [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I] * 2 + [_P]
+_GEMM = [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I] * 3 + [_P]
 ARGTYPES = {
     # logits, gumbel, mask, x, tau, out, rows, K, t, version,
     # temperature, stream
@@ -69,7 +69,7 @@ ARGTYPES = {
     # 13 strides, stream
     "ssd_scan_f32": _SSD,
     "ssd_scan_bf16": _SSD,
-    # A, B, C, work, M, N, K, lda, ldb, b_kmajor, parts, stream
+    # A, B, C, work, M, N, K, lda, ldb, b_kmajor, parts, sms, stream
     "dense_gemm_f32": _GEMM,
 }
 

@@ -5,30 +5,34 @@
 at any row stride; ``b`` (K, N) is a weight as the port stores it,
 (d_in, d_out) row-major, or a transposed view of one (the tied head's
 ``embed.T``), each read through its strides, so nothing is copied or
-padded: ragged M, N and K are masked in the kernel.  The kernel copies 16
-bytes at a time, so on the card both start on 16-byte boundaries, their
-row strides and K are multiples of 4, and so is N where ``b`` is
-row-major; every served operand is, and ``layers.dense`` gives others to
-PyTorch's product.  A CUDA tensor goes to the kernel, launched on the
-current stream, with the output (and the scratch of a split K, below)
-allocated here; a CPU tensor goes to the plain version ``ref.dense_gemm``,
-which takes any strides.  It raises on what neither takes, and where
-autograd would need a gradient through it (``build.no_backward``).
-``dense_gemm.launches`` counts the kernel's launches.
+padded: TMA fills zeros past M, N and K.  TMA reads rows that start on
+16-byte boundaries at 16-byte strides, so on the card both start on
+16-byte boundaries and their row strides are multiples of 4; so are K,
+and N where ``b`` is row-major; every served operand is, and
+``layers.dense`` gives others to PyTorch's product.  A CUDA tensor goes
+to the kernel, launched on the current stream, with the output (and the
+scratch of a split K, below) allocated here; a CPU tensor goes to the
+plain version ``ref.dense_gemm``, which takes any strides.  It raises on
+what neither takes, and where autograd would need a gradient through it
+(``build.no_backward``).  ``dense_gemm.launches`` counts the kernel's
+launches, ``dense_gemm.split_launches`` those of them whose K was split.
 
-The K split (``split_k``).  A block computes a 128 x 128 tile of the
-output and one block runs per SM, so a grid whose last wave leaves many
-SMs idle (zamba2's products at N = 2560: 160 tiles on 132 SMs, two waves
-61% full) is cut along K into parts, each at least ``MIN_PART_STEPS``
+The K split (``split_k``).  The kernel is persistent: min(tiles x parts,
+SMs) blocks, one an SM, each walking its 128 x 128 output tiles in turn.
+Where the tiles leave many SMs idle in the last round of that walk
+(zamba2's products at N = 2560: 160 tiles on 132 SMs, two rounds, the
+second 21% full), K is cut into parts, each at least ``MIN_PART_STEPS``
 steps of K, whose partial products a second pass sums in a fixed order.
 The part count (up to ``MAX_PARTS``) is the one of least estimated time:
-waves of blocks times the K steps of a part, at ``STEP_US`` a wave-step,
-plus the sum pass's bytes at ``SUM_BYTES_PER_US``.  A fixed rule of the
-shape: nothing is timed at start-up.  The two rates are an H100's
-(chip_smoke.py --measure-dense-gemm: 125 us for text8's 8192 x 768 x 768,
-3 waves x 24 steps; 30 us more for its 2-part sum, 75.5 MB); with them
-the rule picks the fastest count of that run's sweep over every part
-count at every served shape.
+rounds of the walk times the K steps of a part, at ``STEP_US`` a
+round-step, plus the sum pass's bytes at ``SUM_BYTES_PER_US``.  A fixed
+rule of the shape: nothing is timed at start-up.  The two rates are an
+H100's, a least-squares fit to chip_smoke.py --measure-dense-gemm's sweep
+of every part count at every served shape (36 timings): 1.12 us a
+round-step (text8's 8192 x 768 x 768, 3 rounds x 24 steps: 81 us by the
+model, 86 measured), the sum pass at 1.9e6 bytes a us (28 us for
+zamba2's 4-part 1024 x 5120 x 2560, 52 MB); with them the rule picks the
+fastest count of that sweep at every served shape.
 """
 from __future__ import annotations
 
@@ -43,8 +47,8 @@ TILE_M = TILE_N = 128          # a block's output tile (dense_gemm.cu)
 TILE_K = 32                    # K a pipeline stage covers
 MAX_PARTS = 4
 MIN_PART_STEPS = 8             # K steps (of TILE_K) a part runs at least
-STEP_US = 1.74                 # a wave of blocks through one K step
-SUM_BYTES_PER_US = 2.5e6       # the sum pass's rate
+STEP_US = 1.12                 # a round of the walk through one K step
+SUM_BYTES_PER_US = 1.9e6       # the sum pass's rate
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -78,7 +82,7 @@ def layout(a, b):
     """(a's row stride, B K-major, B's row stride) where the kernel takes
     a (..., K) and b (K, N) as they lie: both f32, b 2-D, K agreeing, on
     one device, a's rows at one stride (a 2-D, or contiguous), and the
-    16-byte copies' terms (above); else None.  The fast test of
+    kernel's terms (above); else None.  The fast test of
     ``layers.dense``, which passes activations with their leading dims:
     it neither raises nor looks at the device's type, and reads each
     stride tuple once (every call to a tensor's methods costs the host)."""
@@ -136,7 +140,7 @@ def dense_gemm(a, b):
     if a.device.type != "cuda":
         raise ValueError(f"dense_gemm runs on cuda or cpu, not {a.device}")
     raise ValueError(
-        f"the kernel copies 16 bytes at a time: a and b must start on "
+        f"the kernel reads 16-byte aligned rows: a and b must start on "
         f"16-byte boundaries, with row strides and K multiples of 4, and N "
         f"too where b is row-major; got {tuple(a.shape)} x "
         f"{tuple(b.shape)}, strides {a.stride()} and {b.stride()}")
@@ -153,15 +157,19 @@ def run(a, b, lda: int, kmajor: bool, ldb: int):
     if M == 0 or N == 0:
         return out
     index = a.get_device()
-    parts = split_k(M, N, K, _sms(index))
+    sms = _sms(index)
+    parts = split_k(M, N, K, sms)
     work = (torch.empty((parts, M, N), dtype=torch.float32, device=a.device)
             if parts > 1 else None)
     build.launch("dense_gemm", build.library().lib.dense_gemm_f32, index,
                  a.data_ptr(), b.data_ptr(), out.data_ptr(),
                  None if work is None else work.data_ptr(), M, N, K, lda,
-                 ldb, int(kmajor), parts)
+                 ldb, int(kmajor), parts, sms)
     dense_gemm.launches += 1
+    if parts > 1:
+        dense_gemm.split_launches += 1
     return out
 
 
 dense_gemm.launches = 0
+dense_gemm.split_launches = 0

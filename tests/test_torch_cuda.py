@@ -407,13 +407,22 @@ def _no_tf32():
         pytest.fail("the plain version must run in f32 (TF32 off)")
 
 
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 @pytest.mark.parametrize("M,K,N", DENSE_SHAPES)
 def test_dense_gemm_kernel_matches_plain(gen, M, K, N):
+    """The served shapes; ``dense_gemm.split_launches`` counts the product
+    only where the rule splits its K."""
     _no_tf32()
     a, w = _dense_inputs(gen, M, K, N)
-    before = k5_ops.dense_gemm.launches
+    before = (k5_ops.dense_gemm.launches, k5_ops.dense_gemm.split_launches)
     got = k5_ops.dense_gemm(a, w)
-    assert k5_ops.dense_gemm.launches == before + 1
+    split = k5_ops.split_k(M, N, K, _sms()) > 1
+    assert (k5_ops.dense_gemm.launches,
+            k5_ops.dense_gemm.split_launches) == (before[0] + 1,
+                                                  before[1] + split)
     assert got.shape == (M, N) and got.is_contiguous()
     torch.testing.assert_close(got, k5_ref.dense_gemm(a, w), atol=DENSE_TOL,
                                rtol=DENSE_TOL)
@@ -434,13 +443,29 @@ def test_dense_gemm_kernel_is_as_accurate_as_f32(gen, K):
     assert err <= 3 * plain, (err, plain)
 
 
+# A block walks the output tiles i, i + grid, ... (grid = min(tiles, SMs):
+# 132 on an H100); K runs through a ring of 4 stages of 32, promoted every
+# two stages.
+DENSE_WALKS = [(128, 64, 128),             # 1 tile
+               (131 * 128, 64, 128),       # 131 tiles: one block idle
+               (132 * 128, 64, 128),       # 132: one tile a block
+               (133 * 128, 64, 128),       # 133: one block walks two
+               (40 * 128, 64, 50 * 128)]   # 2000: 15-16 a block
+DENSE_DEPTHS = [(256, 4, 256), (256, 32, 256), (256, 64, 256),
+                (256, 96, 256)]            # fewer K tiles than stages; 3
+                                           # tiles: a promotion of one
+
+
 @pytest.mark.parametrize("M,K,N", [(1000, 200, 100), (129, 36, 132),
                                    (1, 8, 4), (300, 1000, 4), (257, 96, 28),
-                                   (130, 4, 132)])
+                                   (130, 4, 132), *DENSE_WALKS,
+                                   *DENSE_DEPTHS])
 @pytest.mark.parametrize("layout", ["row_major", "transposed"])
 def test_dense_gemm_kernel_masks_ragged_edges(gen, M, K, N, layout):
-    """M, N and K that are no multiples of the tiles (128, 128, 32), with
-    B stored or as a transposed view."""
+    """M, N and K that are no multiples of the tiles (128, 128, 32), tile
+    counts about the SM count (the persistent walk) and K of 1-3 tiles,
+    with B stored or as a transposed view; against the plain product and
+    the float64 one, at the same bar."""
     _no_tf32()
     a, w = _dense_inputs(gen, M, K, N)
     if layout == "transposed":
@@ -449,19 +474,67 @@ def test_dense_gemm_kernel_masks_ragged_edges(gen, M, K, N, layout):
     got = k5_ops.dense_gemm(a, w)
     torch.testing.assert_close(got, k5_ref.dense_gemm(a, w), atol=DENSE_TOL,
                                rtol=DENSE_TOL)
+    torch.testing.assert_close(got.double(), a.double() @ w.double(),
+                               atol=DENSE_TOL, rtol=DENSE_TOL)
+
+
+@pytest.mark.parametrize("M,K,N,parts", [(8192, 768, 768, None),
+                                         (1024, 5120, 2560, None),
+                                         (133 * 128, 96, 128, None),
+                                         (300, 1000, 132, 3)])
+@pytest.mark.parametrize("layout", ["row_major", "transposed"])
+def test_dense_gemm_kernel_is_deterministic(gen, M, K, N, parts, layout,
+                                            monkeypatch):
+    """Two launches on the same inputs give the same bits: each output
+    element is computed by one block in one fixed K order, and K parts are
+    summed in a fixed order (``parts``: forced, else the rule's)."""
+    if parts is not None:
+        monkeypatch.setattr(k5_ops, "split_k", lambda *_: parts)
+    a, w = _dense_inputs(gen, M, K, N)
+    if layout == "transposed":
+        w = w.T.contiguous().T
+    first = k5_ops.dense_gemm(a, w)
+    assert torch.equal(first, k5_ops.dense_gemm(a, w))
+
+
+def test_dense_gemm_kernel_carries_nothing_between_products(gen):
+    """Different products queued back to back on one stream, without a
+    synchronisation between them (other shapes, layouts, K parts and tile
+    walks), each give the bits they give alone: no ring stage, barrier
+    phase or map is carried from one launch to the next."""
+    cases = []
+    for (M, K, N), transposed in (((8192, 768, 768), False),
+                                  ((257, 96, 28), True),
+                                  ((1024, 5120, 2560), False),
+                                  ((133 * 128, 4, 128), True),
+                                  ((1000, 200, 100), False)):
+        a, w = _dense_inputs(gen, M, K, N)
+        if transposed:
+            w = w.T.contiguous().T
+        alone = k5_ops.dense_gemm(a, w)
+        torch.cuda.synchronize()
+        cases.append((a, w, alone))
+    got = [k5_ops.dense_gemm(a, w) for a, w, _ in cases + cases[::-1]]
+    torch.cuda.synchronize()
+    for (_, _, alone), out in zip(cases + cases[::-1], got):
+        assert torch.equal(out, alone)
 
 
 @pytest.mark.parametrize("parts", [1, 2, 3, 4])
 def test_dense_gemm_kernel_splits_k(gen, parts, monkeypatch):
     """Every count of K parts gives the product (zamba2's out_proj shape,
-    K 5120, and a ragged one); the rule's own choice is covered above."""
+    K 5120, and a ragged one), and ``dense_gemm.split_launches`` counts the
+    products of more than one part; the rule's own choice is covered
+    above."""
     _no_tf32()
     monkeypatch.setattr(k5_ops, "split_k", lambda *_: parts)
     for M, K, N in ((1024, 5120, 2560), (300, 1000, 132)):
         a, w = _dense_inputs(gen, M, K, N)
+        before = k5_ops.dense_gemm.split_launches
         torch.testing.assert_close(k5_ops.dense_gemm(a, w),
                                    k5_ref.dense_gemm(a, w), atol=DENSE_TOL,
                                    rtol=DENSE_TOL)
+        assert k5_ops.dense_gemm.split_launches == before + (parts > 1)
 
 
 @pytest.mark.parametrize("V", [28, 32000, 50257])

@@ -321,6 +321,25 @@ def test_dense_gemm_cpu_path_is_the_plain_product():
     assert t_gemm.dense_gemm.launches == 0
 
 
+@pytest.mark.parametrize("M,K,N,layout", [
+    (70, 48, 33, "stored"), (70, 48, 33, "transposed"),
+    (128, 1024, 128, "stored"), (1024, 5120, 40, "transposed")])
+def test_dense_gemm_cpu_route_launches_nothing(M, K, N, layout):
+    """On the CPU, shapes the card would run whole or in K parts
+    (``split_k`` > 1 for the last two) take the plain product, and neither
+    ``dense_gemm.launches`` nor ``dense_gemm.split_launches`` moves."""
+    t_gemm.dense_gemm.launches = t_gemm.dense_gemm.split_launches = 0
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    if layout == "transposed":
+        w = w.T.contiguous().T
+    assert torch.equal(t_gemm.dense_gemm(a, w), a @ w)
+    assert (t_gemm.dense_gemm.launches,
+            t_gemm.dense_gemm.split_launches) == (0, 0)
+    assert (t_gemm.split_k(M, N, K, 132) > 1) == (M >= 128)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "rank", "shape", "rows", "layout",
                                  "device", "grad"])
 def test_dense_gemm_rejects_what_the_kernel_cannot_take(bad):
@@ -394,9 +413,14 @@ def test_dense_gemm_layout_is_the_kernels_terms(case, want):
 def test_dense_gemm_split_rule(M, K, N):
     """The K split is a fixed function of the shape: 1 .. MAX_PARTS parts,
     each at least MIN_PART_STEPS steps of K when there are several, never
-    more waves of K steps than one part takes.  Every text8 product (M
-    8192) and zamba2's in_proj, gate/up and head run unsplit; its 160-tile
-    products (N 2560) in 4 parts, the fastest on an H100."""
+    more rounds of K steps than one part takes.  With the constants fitted
+    to the persistent kernel's sweep on an H100: every text8 product (M
+    8192: 384 to 1536 tiles, 3 to 12 rounds of the walk on 132 SMs) and
+    zamba2's in_proj, gate/up and head (640 to 2000 tiles) run unsplit, as
+    cutting K would shorten no round enough to pay for the sum pass; its
+    160-tile products (N 2560: two rounds, 28 of 132 blocks busy in the
+    second) run in 4 parts (640 items, 5 rounds of a quarter of K), the
+    fastest count in the sweep."""
     sms = 132
     tiles = -(-M // t_gemm.TILE_M) * -(-N // t_gemm.TILE_N)
     steps = -(-K // t_gemm.TILE_K)
